@@ -1,0 +1,139 @@
+"""CLI flag surface: the JAX package's flags, names and defaults unchanged.
+
+``dasemanticsegmentationaml_tpu/utils/config.py`` cannot be reused as it
+is: its ``build_parser`` imports ``ops/quantize.py`` for the
+``--quantize_filter`` choices (config.py:179), and that module imports
+JAX. So the surface is restated here, and a test holds every flag's name,
+default, type and choices against the JAX parser. Boolean flags take
+``str2bool`` as there (the reference's ``type=bool`` made
+``--domain_shift False`` truthy, train.py:408-437).
+
+The port runs ``--domain_shift`` evaluation; the CLI stops with
+``SystemExit`` on the flags of paths still to be ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def str2bool(v):
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Unsupported value encountered.")
+
+
+def str2bool_auto(v):
+    """Tri-state: True/False like str2bool, or 'auto' -> None."""
+    if v is None or (isinstance(v, str) and v.lower() == "auto"):
+        return None
+    return str2bool(v)
+
+
+#: the JAX package's ops/quantize.py::PRESET_FILTERS names
+QUANTIZE_FILTERS = ("all", "backbone", "deep", "head", "head_ch", "head_ffm",
+                    "head_stem", "heads_cp")
+
+_TODO = "not ported yet (ROADMAP.md)"
+
+# (flag, type, default, choices, help)
+_FLAGS = (
+    ("--root", str, "../Datasets/Cityscapes", None, "dataset root"),
+    ("--root_source", str, "../Datasets/GTA5", None, _TODO),
+    ("--root_target", str, "../Datasets/Cityscapes", None, _TODO),
+    ("--dataset", str, "Cityspaces", None,
+     "GTAV or Cityspaces (GTAV evaluates on its 25%% val split)"),
+    ("--backbone", str, "STDCNet813", None, "STDC1 family only"),
+    ("--pretrain_path", str, "", None,
+     "full net iff '.pth' in the path, else backbone iff 'STDCNet'"),
+    ("--use_conv_last", str2bool, False, None, "apply conv_last to feat32"),
+    ("--num_epochs", int, 50, None, _TODO),
+    ("--epoch_start_i", int, 0, None, _TODO),
+    ("--checkpoint_step", int, 10, None, _TODO),
+    ("--validation_step", int, 1, None, _TODO),
+    ("--crop_height", int, 512, None, "resize height argument"),
+    ("--crop_width", int, 1024, None, "resize width argument"),
+    ("--batch_size", int, 8, None, _TODO),
+    ("--eval_batch_size", int, 1, None, "validation batch size"),
+    ("--learning_rate", float, 0.01, None, _TODO),
+    ("--learning_rate_D", float, 1e-3, None, _TODO),
+    ("--num_workers", int, 4, None, "decode threads"),
+    ("--worker_timeout", float, 120.0, None, _TODO),
+    ("--fetch_timeout", float, 900.0, None, _TODO),
+    ("--num_classes", int, 19, None, "classes"),
+    ("--cuda", str, "0", None,
+     "device: 'cpu', or the index n of cuda:n (no silent CPU fallback)"),
+    ("--use_gpu", str2bool, True, None,
+     "accepted for CLI compat; --cuda picks the device"),
+    ("--save_model_path", str, None, None, _TODO),
+    ("--optimizer", str, "sgd", None, _TODO),
+    ("--loss", str, "crossentropy", None, _TODO),
+    ("--iter_size", int, 1, None, _TODO),
+    ("--domain_shift", str2bool, False, None,
+     "evaluate --pretrain_path on the val set"),
+    ("--domain_adaptation", str2bool, False, None, _TODO),
+    ("--momentum", float, 0.9, None, _TODO),
+    ("--weight_decay", float, 5e-4, None, _TODO),
+    ("--lambda_adv_target1", float, 0.001, None, _TODO),
+    ("--aug_type", str, None, None, "training augmentation; " + _TODO),
+    ("--depthwise", str2bool, False, None, _TODO),
+    ("--batch_norm", str2bool, False, None, _TODO),
+    ("--dtype", str, "bfloat16", ("bfloat16", "float32"),
+     "compute dtype: bfloat16 = torch.autocast, float32 = no TF32"),
+    ("--faithful_resize", str2bool, True, None,
+     "reproduce the reference's PIL (h, w) transposition"),
+    ("--augment_labels", str2bool, False, None, _TODO),
+    ("--fast_device_geometry", str2bool, False, None, _TODO),
+    ("--host_augment", str2bool_auto, None, None, _TODO),
+    ("--sync_bn", str2bool, True, None, _TODO),
+    ("--num_devices", int, None, None, "more than 1: " + _TODO),
+    ("--spatial_devices", int, 1, None, "more than 1: " + _TODO),
+    ("--d_pretrain_path", str, "", None, _TODO),
+    ("--d_head", int, 0, (0, 2), _TODO),
+    ("--da_step_mode", str, "interleaved", ("interleaved", "combined"),
+     _TODO),
+    ("--nni_faithful_lr", str2bool, False, None, _TODO),
+    ("--seed", int, 0, None, "seed of the random initial weights"),
+    ("--ohem_threshold", float, 0.7, None, _TODO),
+    ("--ohem_keep_num", int, 65536, None, _TODO),
+    ("--use_fused_eval", str2bool, True, None,
+     "fused upsample+argmax (the CUDA kernel on a CUDA device)"),
+    ("--eval_scan_window", int, 0, None, "accepted; the port has no scan"),
+    ("--quantize_int8", str2bool, False, None, _TODO),
+    ("--calib_batches", int, 4, None, _TODO),
+    ("--quantize_filter", str, "head_ch", QUANTIZE_FILTERS, _TODO),
+    ("--quantize_clip", str, "absmax", ("absmax", "p999"), _TODO),
+    ("--export_model", str, None, None, _TODO),
+    ("--export_batches", str, None, None, _TODO),
+    ("--export_spatial", str2bool, False, None, _TODO),
+    ("--export_devices", int, 1, None, _TODO),
+    ("--resume", str, None, None, _TODO),
+    ("--coordinator_address", str, None, None, _TODO),
+    ("--num_processes", int, None, None, _TODO),
+    ("--process_id", int, None, None, _TODO),
+    ("--eval_process_shard", str2bool, True, None, _TODO),
+    ("--data_cache", str, None, None, _TODO),
+    ("--jsonl_log", str, None, None, _TODO),
+    ("--tensorboard", str2bool, True, None, "accepted; eval logs nothing"),
+    ("--profile_dir", str, None, None, _TODO),
+    ("--max_steps_per_epoch", int, None, None, _TODO),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="BiSeNet-STDC813 segmentation on PyTorch + CUDA "
+                    "(port of dasemanticsegmentationaml_tpu; --domain_shift "
+                    "evaluation)")
+    for flag, typ, default, choices, help_ in _FLAGS:
+        p.add_argument(flag, type=typ, default=default, choices=choices,
+                       help=help_)
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)

@@ -131,6 +131,10 @@ def pytest_configure(config):
         "markers",
         "slow: >=18s on the 1-core box (DA-step compiles, subprocess "
         "e2e runs); excluded from the quick tier via -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch port's kernels); skips "
+        "without one")
 
 
 def pytest_collection_modifyitems(config, items):
