@@ -3,23 +3,37 @@
 
     python3 chip_smoke.py
 
-1. device  -- a CUDA card must be present (exit 1 otherwise, no CPU
-              fallback); prints its name and power limit from nvidia-smi.
-2. build   -- compiles csrc/upsample_argmax.cu with nvcc for sm_90a.
-3. kernel  -- the fused upsample+argmax kernel against its plain PyTorch
-              version on the card, bit for bit, on random-normal and
-              tie-heavy logits in fp32 and bf16, at the main path's shapes
-              and at odd, identity and one-pixel edge shapes.
-4. model   -- full-width BiSeNet-STDC813 (seeded weights) at 2x3x512x1024:
-              fp32 features on the card against the same module on the CPU
-              (TF32 off), and bf16 autocast predictions against fp32.
-5. slice   -- the port's --domain_shift CLI on a synthetic 4-image
-              Cityscapes val tree at 1024x512 on cuda:0 in bf16 (the
-              kernel's launch count is reset before and read after), then
-              fp32 on the card against fp32 on the CPU.
-6. timing  -- CUDA-event times of the kernel and of its plain version,
-              features + kernel throughput at bf16, batch 8, and a
-              torch.profiler pass: device busy share and top kernels.
+1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
+                  fallback); prints its name and power limit from nvidia-smi.
+2. build       -- compiles csrc/upsample_argmax.cu and csrc/fused_ce.cu with
+                  nvcc for sm_90a, one nvcc each, both at once; prints ptxas.
+3. kernel      -- the fused upsample+argmax kernel against its plain PyTorch
+                  version on the card, bit for bit, on random-normal and
+                  tie-heavy logits in fp32 and bf16, at the main path's shapes
+                  and at odd, identity and one-pixel edge shapes.
+4. ce-kernel   -- the fused upsample+CE forward and backward kernels against
+                  their plain version (loss, gradient) in fp32 and bf16, at
+                  the train step's three head shapes and at edge shapes, with
+                  ignored, out-of-range and all-ignored labels; two runs
+                  bit-identical.
+5. model       -- full-width BiSeNet-STDC813 (seeded weights) at 2x3x512x1024:
+                  fp32 features on the card against the same module on the CPU
+                  (TF32 off), and bf16 autocast predictions against fp32.
+6. slice       -- the port's --domain_shift CLI on a synthetic 4-image
+                  Cityscapes val tree at 1024x512 on cuda:0 in bf16 (the
+                  kernel's launch count is reset before and read after), then
+                  fp32 on the card against fp32 on the CPU.
+7. train       -- the port's supervised CLI on a synthetic 16 + 4 image tree
+                  at 1024x512, batch 8, bf16, 2 epochs of 2 steps (the
+                  kernels' counts reset before and read after); its best.pth
+                  through the --domain_shift CLI reproduces its mIoU.
+8. train-parity-- one fp32 train step at 2x3x1024x512 on the card against
+                  the same step on the CPU (TF32 off) and in fp64 on the CPU.
+9. timing      -- CUDA-event times of both kernels and of their plain
+                  versions, features + argmax kernel throughput, the bf16
+                  train step at batch 8 with the CE kernel and with its plain
+                  version (turns A B B A, peak memory), and torch.profiler
+                  passes: device busy share and top kernels.
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record; the last line is
@@ -40,6 +54,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/upsample_argmax.cu"
 KERNEL_REPLACES = "dasemanticsegmentationaml_tpu/ops/pallas/upsample_argmax.py:252"
+CE_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/fused_ce.cu"
+CE_REPLACES = "dasemanticsegmentationaml_tpu/ops/pallas/fused_ce.py:303"
 
 
 def log(phase, msg):
@@ -118,6 +134,108 @@ def phase_kernel(device):
     return max_err
 
 
+def ce_labels(device, shape, seed, mode, num_classes=19):
+    """int32 labels: 'mixed' = ~10% ignore (255) and ~5% in 19..254, the
+    rest valid; 'ignored' = every pixel 255."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if mode == "ignored":
+        y = np.full(shape, 255, np.int32)
+    else:
+        y = rng.integers(0, num_classes, shape)
+        r = rng.random(shape)
+        y = np.where(r < 0.10, 255, y)
+        y = np.where((r >= 0.10) & (r < 0.15),
+                     rng.integers(num_classes, 255, shape), y)
+    return torch.from_numpy(y.astype(np.int32)).to(device)
+
+
+def ce_value_and_grad(fn, x, labels, out_hw):
+    import torch
+
+    x = x.detach().requires_grad_()
+    loss = fn(x, labels, out_hw)
+    (grad,) = torch.autograd.grad(loss, x)
+    return loss.detach(), grad
+
+
+#: the three heads of one train step at batch 8, 1024 x 512 (out, out16,
+#: out32 at strides 8, 8, 16)
+CE_MAIN_CASES = (((8, 19, 128, 64), (1024, 512)),
+                 ((8, 19, 128, 64), (1024, 512)),
+                 ((8, 19, 64, 32), (1024, 512)))
+
+
+def phase_ce_kernel(device):
+    """The fused CE kernels against their plain version: loss within
+    1e-5 of |loss|; gradients within 1e-4 of max|grad| (the sums run in
+    another order), plus, for bf16 gradients, one bf16 ulp of each element
+    (at most 2^-7 |grad|): the two fp32 sums may round to neighbouring
+    bf16 values. Two runs bit-identical; the counters rise by the calls."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+
+    cases = [(s, hw, "mixed") for s, hw in CE_MAIN_CASES] + [
+        ((1, 19, 7, 13), (37, 50), "mixed"),     # odd sizes
+        ((2, 19, 64, 128), (64, 128), "mixed"),  # identity
+        ((1, 19, 1, 13), (37, 50), "mixed"),     # h = 1
+        ((1, 19, 1, 1), (3, 5), "mixed"),        # one source pixel
+        ((2, 19, 8, 16), (64, 128), "ignored"),  # all ignored
+    ]
+    fwd0, bwd0 = fc.FWD_LAUNCHES, fc.BWD_LAUNCHES
+    calls = 0
+    errs = {"loss": 0.0, "grad": 0.0}
+    for n, (shape, out_hw, mode) in enumerate(cases):
+        labels = ce_labels(device, (shape[0], *out_hw), n, mode)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = logits_on(device, shape, n, False, dtype)
+            loss, grad = ce_value_and_grad(fc.cross_entropy_upsampled, x,
+                                           labels, out_hw)
+            loss2, grad2 = ce_value_and_grad(fc.cross_entropy_upsampled, x,
+                                             labels, out_hw)
+            calls += 2
+            want, want_grad = ce_value_and_grad(
+                fc.cross_entropy_upsampled_reference, x, labels, out_hw)
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            check(loss.dtype == torch.float32 and loss.shape == ()
+                  and grad.dtype == dtype and grad.shape == x.shape,
+                  f"bad outputs {loss.dtype} {grad.dtype} {grad.shape}")
+            check(torch.equal(loss, loss2) and torch.equal(grad, grad2),
+                  f"two runs differ at {shape}->{out_hw} {name}")
+            d_loss = abs(loss.item() - want.item())
+            diff = (grad.float() - want_grad.float()).abs()
+            g_max = want_grad.float().abs().max().item()
+            d_grad = diff.max().item()
+            errs["loss"] = max(errs["loss"], d_loss)
+            errs["grad"] = max(errs["grad"], d_grad)
+            bound = 1e-4 * g_max
+            if dtype == torch.bfloat16:
+                over = diff > bound + 2.0**-7 * want_grad.float().abs()
+            else:
+                over = diff > bound
+            log("ce-kernel", f"{shape}->{out_hw} {mode} {name}: loss "
+                f"{loss.item():.7f} vs plain {want.item():.7f} (|d| "
+                f"{d_loss:.3e}, bound {1e-5 * abs(want.item()):.3e}); "
+                f"grad max|d| {d_grad:.3e} = {d_grad / max(g_max, 1e-30):.3e}"
+                f" of max|grad| {g_max:.3e}; over the bound: "
+                f"{int(over.sum().item())}; bit-identical rerun")
+            if mode == "ignored":
+                check(loss.item() == 0.0 and not grad.any().item(),
+                      "all-ignored: loss and grad must be 0")
+            check(d_loss <= 1e-5 * abs(want.item()), "loss off")
+            check(not over.any().item(), "grad off")
+    check(fc.FWD_LAUNCHES - fwd0 == calls and fc.BWD_LAUNCHES - bwd0 == calls,
+          f"launch counters rose by {fc.FWD_LAUNCHES - fwd0}/"
+          f"{fc.BWD_LAUNCHES - bwd0}, expected {calls}")
+    log("ce-kernel", f"{len(cases)} cases x fp32+bf16 within bounds; max "
+        f"|d loss| {errs['loss']:.3e}, max |d grad| {errs['grad']:.3e}; "
+        f"FWD_LAUNCHES and BWD_LAUNCHES +{calls}")
+    return errs
+
+
 def phase_model(device):
     import torch
     import torch.nn.functional as F
@@ -181,20 +299,20 @@ def phase_model(device):
     return model
 
 
-def write_cityscapes_val(root, n=4, size=(512, 1024)):
-    """tests/test_cli.py::_mk_cityscapes layout: images/val/city/*.png +
-    gtFine/val/city/*_labelTrainIds.png, numpy seed 0."""
+def write_cityscapes(root, mode="val", n=4, size=(512, 1024), seed=0):
+    """tests/test_cli.py::_mk_cityscapes layout: images/<mode>/city/*.png +
+    gtFine/<mode>/city/*_labelTrainIds.png, from a numpy seed."""
     from PIL import Image
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     for top in ("images", "gtFine"):
-        os.makedirs(os.path.join(root, top, "val", "city"), exist_ok=True)
+        os.makedirs(os.path.join(root, top, mode, "city"), exist_ok=True)
     for i in range(n):
         Image.fromarray(rng.integers(0, 255, (*size, 3), dtype=np.uint8)).save(
-            os.path.join(root, "images", "val", "city", f"c_{i:03d}.png"))
+            os.path.join(root, "images", mode, "city", f"c_{i:03d}.png"))
         Image.fromarray(rng.integers(0, 19, size, dtype=np.uint8),
                         mode="L").save(os.path.join(
-                            root, "gtFine", "val", "city",
+                            root, "gtFine", mode, "city",
                             f"c_{i:03d}_labelTrainIds.png"))
 
 
@@ -203,7 +321,7 @@ def phase_slice():
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     with tempfile.TemporaryDirectory() as root:
-        write_cityscapes_val(root)
+        write_cityscapes(root)
         argv = ["--root", root, "--domain_shift", "True",
                 "--crop_height", "512", "--crop_width", "1024",
                 "--eval_batch_size", "2"]
@@ -226,6 +344,175 @@ def phase_slice():
             f" |dprecision| {d_prec:.3e} (bound 1e-3)")
         check(d_miou <= 1e-3 and d_prec <= 1e-3, "fp32 gpu vs cpu CLI")
     return launches
+
+
+def phase_train():
+    """The supervised CLI at batch 8, 1024x512, bf16; returns the launch
+    counts of its run."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import BiSeNet
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+    from dasemanticsegmentationaml_tpu_torch.utils.weights import (
+        load_reference_state)
+
+    epochs, steps_per_epoch = 2, 2
+    with tempfile.TemporaryDirectory() as root:
+        write_cityscapes(root, "train", n=16, seed=1)
+        write_cityscapes(root, "val", n=4)
+        save = os.path.join(root, "checkpoints")
+        log_path = os.path.join(root, "train.jsonl")
+        argv = ["--root", root, "--batch_size", "8",
+                "--num_epochs", str(epochs),
+                "--max_steps_per_epoch", str(steps_per_epoch),
+                "--validation_step", "1", "--checkpoint_step", "1",
+                "--dtype", "bfloat16", "--cuda", "0",
+                "--tensorboard", "False", "--save_model_path", save,
+                "--jsonl_log", log_path]
+        fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        secs = time.perf_counter() - t0
+        launches = {"fused_ce_fwd": fc.FWD_LAUNCHES,
+                    "fused_ce_bwd": fc.BWD_LAUNCHES,
+                    "upsample_argmax": ua.LAUNCHES}
+        with open(log_path) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        steps = epochs * steps_per_epoch
+        log("train", f"supervised CLI, batch 8, 1024x512, bf16, {steps} "
+            f"steps: {res}; epoch losses {losses}; {secs:.2f} s host time "
+            f"(set-up, validation and checkpoints included); launches "
+            f"{launches}")
+        check(launches["fused_ce_fwd"] == 3 * steps
+              and launches["fused_ce_bwd"] == 3 * steps,
+              f"fused CE launches {launches}, expected {3 * steps} each")
+        check(launches["upsample_argmax"] > 0,
+              "validation did not launch upsample_argmax")
+        check(len(losses) == epochs and all(map(math.isfinite, losses)),
+              f"bad losses {losses}")
+        best = os.path.join(save, "best.pth")
+        check(os.path.exists(best)
+              and os.path.exists(os.path.join(save, "latest.pth")),
+              f"checkpoints missing: {os.listdir(save)}")
+        n = len(load_reference_state(
+            BiSeNet(19), torch.load(best, weights_only=True), strict=True))
+        check(n == 216, f"best.pth holds {n} tensors")
+        ev = cli.main(["--root", root, "--domain_shift", "True",
+                       "--pretrain_path", best, "--dtype", "bfloat16",
+                       "--cuda", "0"])
+        d_miou = abs(ev["miou"] - res["miou"])
+        log("train", f"--domain_shift on best.pth ({n} tensors, strict): "
+            f"{ev}; |dmIoU| vs the trainer's final {d_miou:.3e} "
+            f"(bound 1e-3)")
+        check(d_miou <= 1e-3, "best.pth does not reproduce the mIoU")
+    return launches
+
+
+def ce_float64(logits, labels, out_hw, ignore_index):
+    """fp64 CE(ignore) of the align_corners upsample (the fp64 step)."""
+    import torch
+    import torch.nn.functional as F
+
+    up = F.interpolate(logits, out_hw, mode="bilinear", align_corners=True)
+    valid = (labels != ignore_index) & (labels >= 0) & (labels < up.shape[1])
+    loss = F.cross_entropy(up, torch.where(valid, labels, 0).long(),
+                           reduction="none")
+    return torch.where(valid, loss, 0.0).sum() / valid.sum().clamp_min(1)
+
+
+def phase_train_parity(device):
+    """One fp32 SGD step (lr 0.01, momentum 0.9, wd 1e-4) at 2x3x1024x512
+    from the same seeded weights, on the card (TF32 off) and on the CPU,
+    plus the same step in fp64 on the CPU. Bounds, of each leaf's update
+    (tests/test_train_equivalence.py:79-80, step 1): loss rtol 1e-4;
+    global l2 of card - CPU < 0.02; running statistics < 0.02; each leaf
+    < 0.1 where the CPU's fp32 step is within 0.05 of the fp64 one, and on
+    every leaf the card's step within 0.1 of the fp64 one; the ImageNet
+    head bit-identical."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet, trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.train.optim import make_optimizer
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 3, 1024, 512)).astype(np.float32)
+    y = np.where(rng.random((2, 1024, 512)) < 0.05, 255,
+                 rng.integers(0, 19, (2, 1024, 512))).astype(np.int32)
+
+    def seeded():
+        return build_bisenet(19, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+
+    def state_of(model):
+        return {k: v.detach().to("cpu", torch.float64, copy=True).numpy()
+                for k, v in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+
+    def one_step(dev, dtype, **kw):
+        model = seeded().to(device=dev, dtype=dtype).train()
+        opt = make_optimizer("sgd", trainable_parameters(model), 0.01,
+                             momentum=0.9, weight_decay=1e-4)
+        t0 = time.perf_counter()
+        loss = make_train_step(model, opt, **kw)(
+            torch.from_numpy(x).to(dev, dtype), torch.from_numpy(y).to(dev))
+        loss = loss.item()
+        return loss, state_of(model), time.perf_counter() - t0
+
+    init = state_of(seeded())
+    with fp32_math():
+        card_loss, card, t_card = one_step(device, torch.float32)
+    cpu_loss, cpu, t_cpu = one_step("cpu", torch.float32)
+    exact_loss, exact, t_exact = one_step("cpu", torch.float64, ce=ce_float64)
+    log("train-parity", f"fp32 step loss: card {card_loss:.7f}, CPU "
+        f"{cpu_loss:.7f}, CPU fp64 {exact_loss:.7f} (card {t_card:.1f} s, "
+        f"CPU {t_cpu:.1f} s, fp64 {t_exact:.1f} s, first calls)")
+    check(abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss), "loss off")
+    sq_diff = sq_upd = 0.0
+    worst = {"running": (0.0, ""), "leaf": (0.0, ""), "card_vs_fp64": (0.0, "")}
+    n_frozen = n_tight = n_loose = 0
+    for key, base in init.items():
+        upd = np.abs(cpu[key] - base).max()
+        if upd < 1e-12:
+            check(np.array_equal(card[key], base)
+                  and np.array_equal(exact[key], base), f"{key} moved")
+            n_frozen += 1
+            continue
+        err = np.abs(card[key] - cpu[key]).max() / upd
+        if key.endswith(("running_mean", "running_var")):
+            worst["running"] = max(worst["running"], (err, key))
+            check(err < 0.02, f"running stat {key} off by {err:.3f}")
+            continue
+        sq_diff += float(np.sum((card[key] - cpu[key]) ** 2))
+        sq_upd += float(np.sum((cpu[key] - base) ** 2))
+        exact_upd = np.abs(exact[key] - base).max()
+        card_miss = np.abs(card[key] - exact[key]).max() / exact_upd
+        cpu_miss = np.abs(cpu[key] - exact[key]).max() / exact_upd
+        worst["card_vs_fp64"] = max(worst["card_vs_fp64"], (card_miss, key))
+        check(card_miss < 0.1, f"{key}: card step {card_miss:.3f} of its "
+              f"update off the fp64 step")
+        if cpu_miss < 0.05:
+            worst["leaf"] = max(worst["leaf"], (err, key))
+            check(err < 0.1, f"{key}: card vs CPU {err:.3f} of its update")
+            n_tight += 1
+        else:
+            n_loose += 1
+    g = math.sqrt(sq_diff / max(sq_upd, 1e-30))
+    log("train-parity", f"card vs CPU: global l2 {g:.4f} (bound 0.02); "
+        f"worst running stat {worst['running'][0]:.4f} at "
+        f"{worst['running'][1]} (bound 0.02); worst leaf {worst['leaf'][0]:.4f}"
+        f" at {worst['leaf'][1]} over {n_tight} leaves (bound 0.1; {n_loose} "
+        f"leaves where the CPU's fp32 step misses fp64 by 0.05 or more); card "
+        f"vs fp64 worst {worst['card_vs_fp64'][0]:.4f} at "
+        f"{worst['card_vs_fp64'][1]} (bound 0.1); {n_frozen} frozen leaves "
+        f"bit-identical")
+    check(g < 0.02, f"global l2 {g}")
+    check(n_frozen >= 7, f"only {n_frozen} frozen leaves")
 
 
 def phase_timing(device, model, card):
@@ -278,50 +565,154 @@ def phase_timing(device, model, card):
             f"{sum(ms) / len(ms):.3f} ms/batch = "
             f"{8000.0 * len(ms) / sum(ms):.1f} images/s | {card}")
     profile_eval(model, x, card)
+    times["ce"] = time_ce(device, card)
+    times["train"] = time_train_step(device, card)
     return times
 
 
-def profile_eval(model, x, card, n=10):
-    """Where the eval forward's time goes: device busy share, kernels per
-    batch, host enqueue time, and the heaviest kernels (torch.profiler)."""
+def profile_steps(run_one, what, card, n=10):
+    """Where the time of ``run_one`` goes: device busy share, kernels per
+    call, host enqueue time, and the heaviest kernels (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dasemanticsegmentationaml_tpu_torch.train.evaluate import predict
-
     def run():
         for _ in range(n):
-            predict(model, x, True, torch.bfloat16)
+            run_one()
         torch.cuda.synchronize()
 
-    with torch.inference_mode():
-        run()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict(model, x, True, torch.bfloat16)
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    run_one()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels) // n
-    log("profile", f"features + kernel, bf16, batch 8, {n} batches: device "
-        f"busy {busy_ms / wall_ms:.3f} of {wall_ms:.2f} ms (profiled); "
-        f"{launches} kernels/batch; host enqueue of one batch "
-        f"{enqueue_ms:.2f} ms vs {busy_ms / n:.3f} ms of kernels | {card}")
+    log("profile", f"{what}, {n} calls: device busy {busy_ms / wall_ms:.3f} "
+        f"of {wall_ms:.2f} ms (profiled); {launches} kernels/call; host "
+        f"enqueue of one call {enqueue_ms:.2f} ms vs {busy_ms / n:.3f} ms of "
+        f"kernels | {card}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
         ms = e.self_device_time_total / 1e3 / n
-        log("profile", f"{ms:8.4f} ms/batch {100 * ms * n / busy_ms:5.1f}% "
+        log("profile", f"{ms:8.4f} ms/call {100 * ms * n / busy_ms:5.1f}% "
             f"x{e.count // n:<3d} {e.key[:100]}")
 
 
+def profile_eval(model, x, card):
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import predict
+
+    def run_one():
+        with torch.inference_mode():
+            predict(model, x, True, torch.bfloat16)
+
+    profile_steps(run_one, "features + kernel, bf16, batch 8 (eval)", card)
+
+
+def time_ce(device, card):
+    """The fused CE kernels against the plain version, forward and
+    backward apart, at the train step's head shapes; turns A B B A."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+
+    times = {}
+    fns = {"kernel": fc.cross_entropy_upsampled,
+           "plain": fc.cross_entropy_upsampled_reference}
+    for shape, out_hw in CE_MAIN_CASES[1:]:
+        labels = ce_labels(device, (shape[0], *out_hw), 0, "mixed")
+        for dtype in (torch.bfloat16, torch.float32):
+            x = logits_on(device, shape, 0, False, dtype).requires_grad_()
+            res = {}
+            for part in ("fwd", "bwd"):
+                for name in ("plain", "kernel", "kernel", "plain"):
+                    fn = fns[name]
+                    if part == "fwd":
+                        def call(fn=fn):
+                            with torch.no_grad():
+                                fn(x, labels, out_hw)
+                    else:
+                        loss = fn(x, labels, out_hw)
+
+                        def call(loss=loss):
+                            torch.autograd.grad(loss, x, retain_graph=True)
+                    iters = 50 if name == "kernel" else 10
+                    res.setdefault((part, name), []).append(
+                        cuda_ms(call, iters))
+            mean = {k: sum(v) / len(v) for k, v in res.items()}
+            tag = str(dtype).replace("torch.", "")
+            times[(shape, tag)] = mean
+            log("timing", f"fused CE {shape}->{out_hw} {tag}: forward "
+                f"kernel {mean[('fwd', 'kernel')]:.4f} ms "
+                f"{res[('fwd', 'kernel')]}, plain {mean[('fwd', 'plain')]:.4f}"
+                f" ms {res[('fwd', 'plain')]}; backward kernel "
+                f"{mean[('bwd', 'kernel')]:.4f} ms {res[('bwd', 'kernel')]}, "
+                f"plain {mean[('bwd', 'plain')]:.4f} ms "
+                f"{res[('bwd', 'plain')]} | {card}")
+    return times
+
+
+def time_train_step(device, card):
+    """The bf16 train step at batch 8, 1024x512 with the fused CE kernel
+    and with its plain version, in turns A B B A; then a profiler pass."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet, trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.train.optim import make_optimizer
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    model = build_bisenet(19, device=device,
+                          generator=torch.Generator().manual_seed(0)).train()
+    opt = make_optimizer("sgd", trainable_parameters(model), 0.01,
+                         momentum=0.9, weight_decay=1e-4)
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (8, 1024, 512, 3), dtype=np.uint8)
+    labels = np.where(rng.random((8, 1024, 512)) < 0.05, 255,
+                      rng.integers(0, 19, (8, 1024, 512))).astype(np.uint8)
+    x, y = prepare_batch(images, labels, device=device, dtype=torch.bfloat16)
+    steps = {name: make_train_step(model, opt, amp_dtype=torch.bfloat16,
+                                   ce=ce)
+             for name, ce in (("kernel", fc.cross_entropy_upsampled),
+                              ("plain", fc.cross_entropy_upsampled_reference))}
+    runs = {}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = cuda_ms(lambda: steps[name](x, y), 10, warmup=2)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        runs.setdefault(name, []).append((ms, peak))
+        log("timing", f"train step, bf16, batch 8, 1024x512, CE {name}: "
+            f"{ms:.3f} ms/step = {8000.0 / ms:.1f} images/s, peak memory "
+            f"{peak:.2f} GiB | {card}")
+    summary = {}
+    for name, rs in runs.items():
+        ms = sum(r[0] for r in rs) / len(rs)
+        summary[name] = (ms, max(r[1] for r in rs))
+        log("timing", f"train step, bf16, batch 8, CE {name}: mean "
+            f"{ms:.3f} ms/step = {8000.0 / ms:.1f} images/s, peak memory "
+            f"{summary[name][1]:.2f} GiB | {card}")
+    profile_steps(lambda: steps["kernel"](x, y),
+                  "train step with the CE kernel, bf16, batch 8", card)
+    return summary
+
+
 def main():
+    import concurrent.futures as futures
+
     import torch
 
     if not torch.cuda.is_available():
@@ -329,6 +720,7 @@ def main():
               "False); this script runs only on a card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
     from dasemanticsegmentationaml_tpu_torch.ops.cuda.build import BUILD_LOGS
 
@@ -341,22 +733,37 @@ def main():
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    ua._library()
-    log("build", f"upsample_argmax.cu built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s (set-up)")
-    for line in BUILD_LOGS.get("upsample_argmax", "").splitlines():
-        log("build", line)
+    with futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(ua._library), pool.submit(fc._library)]:
+            job.result()
+    log("build", f"upsample_argmax.cu and fused_ce.cu built (in parallel) "
+        f"and loaded in {time.perf_counter() - t0:.2f} s (set-up)")
+    for name in ("upsample_argmax", "fused_ce"):
+        for line in BUILD_LOGS.get(name, "").splitlines():
+            log("build", f"{name}: {line}")
 
     max_err = phase_kernel(device)
+    ce_errs = phase_ce_kernel(device)
     model = phase_model(device)
-    launches = phase_slice()
+    eval_launches = phase_slice()
+    train_launches = phase_train()
+    phase_train_parity(device)
     times = phase_timing(device, model, card)
 
     kern, plain = times[((2, 19, 128, 64), "bfloat16")]
-    print(json.dumps({"kernels": [{
-        "name": "upsample_argmax", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": kern, "plain_ms": plain}]}))
+    ce = times["ce"][(CE_MAIN_CASES[0][0], "bfloat16")]
+    print(json.dumps({"kernels": [
+        {"name": "upsample_argmax", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": KERNEL_REPLACES, "launches": eval_launches,
+         "max_abs_err": max_err, "ms": kern, "plain_ms": plain},
+        {"name": "fused_ce_fwd", "route": "cuda", "source": CE_SOURCE,
+         "replaces": CE_REPLACES, "launches": train_launches["fused_ce_fwd"],
+         "max_abs_err": ce_errs["loss"], "ms": ce[("fwd", "kernel")],
+         "plain_ms": ce[("fwd", "plain")]},
+        {"name": "fused_ce_bwd", "route": "cuda", "source": CE_SOURCE,
+         "replaces": CE_REPLACES, "launches": train_launches["fused_ce_bwd"],
+         "max_abs_err": ce_errs["grad"], "ms": ce[("bwd", "kernel")],
+         "plain_ms": ce[("bwd", "plain")]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

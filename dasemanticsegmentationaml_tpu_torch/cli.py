@@ -1,18 +1,26 @@
-"""CLI entry point: the reference train.py's ``--domain_shift`` mode.
+"""CLI entry point: the reference train.py's supervised and
+``--domain_shift`` modes.
 
-Counterpart of ``dasemanticsegmentationaml_tpu/cli.py`` (main :281; the
-eval-only branch :472-476 and :591-599; datasets :312-403). It loads a
-checkpoint into BiSeNet-STDC813 and evaluates it on the Cityscapes val set
-(or the GTA5 25% split with ``--dataset GTAV``), printing precision and
-mIoU like the reference's ``val()`` (train.py:24-61).
+Counterpart of ``dasemanticsegmentationaml_tpu/cli.py`` (main :281;
+datasets :312-403; the eval-only branch :472-476 and :591-599; the
+supervised branch :713-763). Without ``--domain_shift`` it trains
+BiSeNet-STDC813 on the Cityscapes train split (or the GTA5 75% split with
+``--dataset GTAV``), validating and checkpointing as the reference's
+``train()`` does (train.py:63-120), and ends with a full validation. With
+``--domain_shift True`` it evaluates ``--pretrain_path`` on the val set,
+printing precision and mIoU like the reference's ``val()``
+(train.py:24-61).
 
 ``--cuda`` picks the device: ``cpu``, or the index ``n`` of ``cuda:n``;
 without CUDA the latter stops with ``SystemExit``, it never drops to the
-CPU. Supervised training, domain adaptation, int8, export, the data cache,
-multi-device and multi-process runs and host augmentation stop with
-``SystemExit("not ported yet: see ROADMAP.md")``.
+CPU. Domain adaptation, ``--iter_size > 1``, ``--aug_type``, ``--resume``,
+``--profile_dir``, int8, export, the data cache, host augmentation and
+multi-device or multi-process runs stop with
+``SystemExit("...: not ported yet: see ROADMAP.md")``.
 
-Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
+Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
+          --root <cityscapes> --cuda 0
+      python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
           --root <cityscapes> --pretrain_path best.pth --cuda 0
 """
 
@@ -24,9 +32,13 @@ import torch
 
 from .data.datasets import CityScapes, GtaV, Subset, train_val_split
 from .data.pipeline import Loader, prepare_batch
-from .models.bisenet import build_bisenet
+from .models.bisenet import build_bisenet, trainable_parameters
 from .train.evaluate import evaluate
+from .train.optim import make_optimizer
+from .train.supervised import make_train_step, train
+from .utils.checkpoint import make_checkpoint_fn
 from .utils.config import parse_args
+from .utils.logging_util import JsonlLogger, make_writer
 from .utils.weights import load_pretrain
 
 NOT_PORTED = "not ported yet: see ROADMAP.md"
@@ -54,8 +66,10 @@ def resolve_device(cuda: str) -> torch.device:
 def check_ported(args) -> None:
     """Stop on every flag whose path the port does not have yet."""
     unported = {
-        "training (the port runs --domain_shift True only)":
-            not args.domain_shift,
+        "--domain_adaptation True": args.domain_adaptation,
+        "--iter_size > 1": args.iter_size > 1,
+        "--aug_type": args.aug_type is not None,
+        "--profile_dir": args.profile_dir,
         "--quantize_int8": args.quantize_int8,
         "--export_model": args.export_model,
         "--data_cache": args.data_cache,
@@ -91,22 +105,26 @@ def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
     device = resolve_device(args.cuda)
+    pin = device.type == "cuda"
 
     # ---- datasets (reference train.py:444-491) ---------------------------
     if args.dataset == "GTAV":
         dataset = GtaV(args.root, args.crop_height, args.crop_width,
                        faithful_resize=args.faithful_resize)
-        _train_idx, val_idx = train_val_split(len(dataset))
+        train_idx, val_idx = train_val_split(len(dataset))
+        train_ds = Subset(dataset, train_idx)
         val_ds = Subset(dataset, val_idx)
         remap = True
     else:
+        train_ds = None if args.domain_shift else CityScapes(
+            "train", args.root, args.crop_height, args.crop_width,
+            faithful_resize=args.faithful_resize)
         val_ds = CityScapes("val", args.root, args.crop_height,
                             args.crop_width,
                             faithful_resize=args.faithful_resize)
         remap = False
-    loader = Loader(val_ds, args.eval_batch_size,
-                    num_workers=args.num_workers,
-                    pin_memory=device.type == "cuda")
+    loader_val = Loader(val_ds, args.eval_batch_size,
+                        num_workers=args.num_workers, pin_memory=pin)
 
     # ---- model ------------------------------------------------------------
     model = build_bisenet(args.num_classes, device=device,
@@ -121,12 +139,49 @@ def main(argv=None):
         return prepare_batch(images, labels, device=device, remap=remap,
                              dtype=amp_dtype or torch.float32)
 
-    # ---- eval-only mode (reference train.py:511,519) ----------------------
+    def evaluate_fn(m):
+        return evaluate(m, loader_val, args.num_classes, prepare=prepare,
+                        device=device, use_fused_kernel=args.use_fused_eval,
+                        amp_dtype=amp_dtype)
+
     with fp32_math() if amp_dtype is None else contextlib.nullcontext():
-        precision, miou = evaluate(
-            model, loader, args.num_classes, prepare=prepare, device=device,
-            use_fused_kernel=args.use_fused_eval, amp_dtype=amp_dtype)
-    return {"precision": precision, "miou": miou}
+        if args.domain_shift:
+            # eval-only mode (reference train.py:511,519)
+            precision, miou = evaluate_fn(model)
+            return {"precision": precision, "miou": miou}
+        max_miou = _train_supervised(args, model, train_ds, prepare,
+                                     evaluate_fn, amp_dtype, pin)
+        model.eval()
+        precision, miou = evaluate_fn(model)
+    return {"precision": precision, "miou": miou, "max_miou": max_miou}
+
+
+def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
+                      amp_dtype, pin) -> float:
+    """The supervised branch (JAX cli.py:713-763; reference
+    train.py:465-470,501-509). SGD takes weight decay 1e-4, hard-coded as
+    the reference does (train.py:504), not ``--weight_decay`` (the DA
+    value); Adam and RMSprop take none."""
+    loader_train = Loader(train_ds, args.batch_size, shuffle=True,
+                          seed=args.seed, drop_last=True,
+                          num_workers=args.num_workers, pin_memory=pin)
+    wd = {"sgd": 1e-4}.get(args.optimizer, 0.0)
+    optimizer = make_optimizer(
+        args.optimizer, trainable_parameters(model, args.use_conv_last),
+        args.learning_rate, momentum=0.9, weight_decay=wd)
+    step = make_train_step(model, optimizer, ohem=args.ohem,
+                           amp_dtype=amp_dtype)
+    writer = make_writer(args.tensorboard)
+    logger = JsonlLogger(args.jsonl_log)
+    try:
+        return train(args, model, optimizer, loader_train, prepare=prepare,
+                     evaluate_fn=evaluate_fn, train_step=step,
+                     writer=writer, logger=logger,
+                     checkpoint_fn=make_checkpoint_fn(args.save_model_path))
+    finally:
+        logger.close()
+        if writer is not None:
+            writer.close()
 
 
 if __name__ == "__main__":

@@ -1,16 +1,19 @@
 """Input pipeline: a threaded host loader + batch preparation on the device.
 
-Counterpart of ``dasemanticsegmentationaml_tpu/data/pipeline.py`` for
-evaluation: batches ship as uint8 (a quarter of the bytes of normalised
-fp32) and are normalised where the model runs. Augmentation and the native
-C++ loader are still to be ported (ROADMAP.md).
+Counterpart of ``dasemanticsegmentationaml_tpu/data/pipeline.py``:
+batches ship as uint8 (a quarter of the bytes of normalised fp32) and are
+normalised where the model runs. The train loader shuffles with the JAX
+package's order, ``np.random.default_rng((seed, epoch)).permutation(n)``
+(JAX pipeline.py:179-184), so both see the same batches. Augmentation and
+the native C++ loader are still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as futures
-from typing import Iterator, Tuple
+import itertools
+from typing import Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -41,35 +44,59 @@ def prepare_batch(images_u8, labels_u8, *, device: torch.device,
 
 
 class Loader:
-    """In-order batches of a dataset, decoded by a pool of threads; the
-    tail batch is kept (the reference's val loader, train.py:486-491).
+    """Batches of a dataset, decoded by a pool of threads (JAX
+    pipeline.py:128-234).
 
-    Yields uint8 tensors (images NHWC, labels NHW), in pinned host memory
-    when ``pin_memory`` so that the copy to the card runs asynchronously.
+    ``shuffle``: a new order each epoch (``set_epoch``), deterministic in
+    (seed, epoch); otherwise in order. ``drop_last``: drop the ragged tail
+    batch, as the reference's train loader does (train.py:465-470); the val
+    loader keeps it (train.py:486-491). Yields uint8 tensors (images NHWC,
+    labels NHW), in pinned host memory when ``pin_memory`` so that the copy
+    to the card runs asynchronously.
     """
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 pin_memory: bool = False):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = False,
+                 num_workers: int = 4, pin_memory: bool = False):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.pin_memory = pin_memory
+        self._epoch = 0
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def order(self) -> np.ndarray:
+        """The dataset indices of this epoch, in the order they are
+        batched."""
+        n = len(self.dataset)
+        if not self.shuffle:
+            return np.arange(n)
+        return np.random.default_rng((self.seed, self._epoch)).permutation(n)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
-        n, bs = len(self.dataset), self.batch_size
+        order = self.order()
+        bs = self.batch_size
         n_batches = len(self)
         pool = futures.ThreadPoolExecutor(self.num_workers,
                                           thread_name_prefix="decode")
         pending: collections.deque = collections.deque()
 
         def submit(b: int) -> None:
-            pending.append([pool.submit(self.dataset.__getitem__, i)
-                            for i in range(b * bs, min(n, (b + 1) * bs))])
+            pending.append([pool.submit(self.dataset.__getitem__, int(i))
+                            for i in order[b * bs:(b + 1) * bs]])
 
         try:
             for b in range(min(2, n_batches)):
@@ -85,3 +112,19 @@ class Loader:
                 yield images, labels
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
+
+
+def device_prefetch(batches: Iterable) -> Iterator:
+    """Keep two batches in flight ahead of the consumer (JAX
+    pipeline.py:237's double buffering, without its watchdog thread).
+
+    ``batches`` yields prepared batches: ``prepare_batch`` enqueues the
+    pinned host-to-device copy and the normalisation on the stream and
+    returns at once, so pulling the next batch before the current step
+    issues its transfer before the step's kernels."""
+    it = iter(batches)
+    queue = collections.deque(itertools.islice(it, 2))
+    while queue:
+        batch = queue.popleft()
+        queue.extend(itertools.islice(it, 1))
+        yield batch

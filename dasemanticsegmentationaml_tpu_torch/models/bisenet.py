@@ -188,6 +188,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.num_batches_tracked.zero_()
 
 
+#: the backbone's ImageNet head, which segmentation never runs
+_IMAGENET_HEAD = ("fc", "bn", "linear")
+
+
+def trainable_parameters(model: BiSeNet, use_conv_last: bool = False):
+    """The parameters a segmentation step updates: all but the backbone's
+    ImageNet head (``cp.backbone.fc/bn/linear``, and ``conv_last`` unless
+    ``use_conv_last``), which gets no gradient (JAX bisenet.py:276-296
+    ``unused_param_mask``; torch skips parameters whose grad is None)."""
+    dead = _IMAGENET_HEAD + (() if use_conv_last else ("conv_last",))
+    prefixes = tuple(f"cp.backbone.{name}." for name in dead)
+    return [p for name, p in model.named_parameters()
+            if not name.startswith(prefixes)]
+
+
 def build_bisenet(n_classes: int, *, device, generator: torch.Generator,
                   backbone_name: str = "STDCNet813",
                   use_conv_last: bool = False) -> BiSeNet:

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from typing import Dict
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output of the build made in this process (``-Xptxas -v``:
 #: registers, shared memory and spills of each kernel), by source name
@@ -48,8 +51,11 @@ def nvcc_path() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library.
 
-    Raises on a failed build or load; there is no fallback."""
+    Raises on a failed build or load; there is no fallback. Two sources
+    build at once from two threads; one source builds once."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
@@ -71,3 +77,15 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(so_path)
         _LIBS[name] = lib
         return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``, for a launch."""
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise on the CUDA error code a launcher returned."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

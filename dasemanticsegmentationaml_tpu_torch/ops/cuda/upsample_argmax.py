@@ -6,9 +6,9 @@ upsample_argmax`` (:252). On a CUDA tensor the wrapper launches the
 hand-written Hopper kernel ``csrc/upsample_argmax.cu`` (design, numerics
 and bound are noted there); on a CPU tensor it runs the plain PyTorch
 version ``upsample_argmax_reference``, which computes the same two-tap
-formula with separate fp32 multiplies and adds and therefore the same
-bits. Both take their taps from ``ops/resize.py::_align_corners_taps``,
-the numbers the JAX package uses.
+formula with separate fp32 multiplies and adds (``ops/resize.py::
+upsample_two_tap``) and therefore the same bits. Both take their taps from
+``ops/resize.py::_align_corners_taps``, the numbers the JAX package uses.
 
 Eval inference (reference train.py:36-38): the main head's stride-8
 logits, upsampled to the input size (model_stages.py:240), then the class
@@ -23,8 +23,8 @@ from typing import Tuple
 
 import torch
 
-from ..resize import _align_corners_taps
-from .build import load_library
+from ..resize import taps_on, upsample_two_tap
+from .build import check_launch, current_stream, load_library
 
 #: kernel launches made by ``upsample_argmax`` in this process; a run sets
 #: it to 0 and reads it afterwards to show the path went through the kernel
@@ -34,13 +34,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _INT_MAX = 2**31 - 1
-
-
-@functools.lru_cache(maxsize=64)
-def _taps(in_size: int, out_size: int, device: torch.device):
-    """(lo, hi, t) of one axis as int32/int32/fp32 tensors on ``device``."""
-    lo, hi, t = _align_corners_taps(in_size, out_size)
-    return tuple(torch.from_numpy(a).to(device) for a in (lo, hi, t))
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,16 +51,7 @@ def upsample_argmax_reference(logits: torch.Tensor,
 
     Rows first, then columns (JAX resize.py:109-112); each product and sum
     is its own fp32 op, as in the kernel."""
-    x = logits.float()
-    _, _, h, w = x.shape
-    out_h, out_w = out_hw
-    lo_y, hi_y, ty = _taps(h, out_h, x.device)
-    lo_x, hi_x, tx = _taps(w, out_w, x.device)
-    ty = ty.view(out_h, 1)
-    rows = (1 - ty) * x.index_select(2, lo_y) + ty * x.index_select(2, hi_y)
-    u = ((1 - tx) * rows.index_select(3, lo_x)
-         + tx * rows.index_select(3, hi_x))
-    return u.argmax(1).to(torch.int32)
+    return upsample_two_tap(logits, out_hw).argmax(1).to(torch.int32)
 
 
 def upsample_argmax(logits: torch.Tensor,
@@ -102,16 +86,11 @@ def upsample_argmax(logits: torch.Tensor,
     lib = _library()
     fn = (lib.upsample_argmax_f32 if logits.dtype == torch.float32
           else lib.upsample_argmax_bf16)
-    lo_y, hi_y, ty = _taps(h, out_h, logits.device)
-    lo_x, hi_x, tx = _taps(w, out_w, logits.device)
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(logits.data_ptr(), out.data_ptr(), lo_y.data_ptr(),
-                 hi_y.data_ptr(), ty.data_ptr(), lo_x.data_ptr(),
-                 hi_x.data_ptr(), tx.data_ptr(), b, c, h, w, out_h, out_w,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA "
-                           f"error {err}")
+    lo_y, hi_y, ty = taps_on(h, out_h, logits.device)
+    lo_x, hi_x, tx = taps_on(w, out_w, logits.device)
+    check_launch(fn(logits.data_ptr(), out.data_ptr(), lo_y.data_ptr(),
+                    hi_y.data_ptr(), ty.data_ptr(), lo_x.data_ptr(),
+                    hi_x.data_ptr(), tx.data_ptr(), b, c, h, w, out_h, out_w,
+                    current_stream(logits.device)), "upsample_argmax")
     LAUNCHES += 1
     return out

@@ -13,8 +13,9 @@ TPU (resize.py:58-94); in PyTorch they are native:
   model/model_stages.py:123,127,132).
 
 ``_align_corners_taps`` is copied verbatim from the JAX module
-(resize.py:31-46): the fused upsample+argmax kernel and its plain version
-take their taps from it, so both interpolate with the same numbers as JAX.
+(resize.py:31-46): the fused kernels (upsample+argmax, upsample+CE) and
+their plain versions take their taps from it, so all interpolate with the
+same numbers as JAX. ``upsample_two_tap`` is that plain interpolation.
 """
 
 from __future__ import annotations
@@ -44,6 +45,35 @@ def _align_corners_taps(in_size: int, out_size: int):
     hi = np.minimum(lo + 1, in_size - 1)
     w_hi = (pos - lo).astype(np.float32)
     return lo, hi, w_hi
+
+
+@functools.lru_cache(maxsize=64)
+def taps_on(in_size: int, out_size: int, device: torch.device):
+    """(lo, hi, t) of one axis as int32/int32/fp32 tensors on ``device``.
+
+    Made outside inference mode even when first asked for inside it (by
+    evaluation): the cached tensors are reused by the training loss,
+    whose backward saves them."""
+    lo, hi, t = _align_corners_taps(in_size, out_size)
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in (lo, hi, t))
+
+
+def upsample_two_tap(logits: torch.Tensor,
+                     out_hw: Tuple[int, int]) -> torch.Tensor:
+    """align_corners bilinear upsample of (B, C, h, w) to fp32 (B, C, H, W)
+    from ``_align_corners_taps``: rows first, then columns (JAX
+    resize.py:109-112), each product and sum its own fp32 op, as the fused
+    CUDA kernels compute it."""
+    x = logits.float()
+    _, _, h, w = x.shape
+    out_h, out_w = out_hw
+    lo_y, hi_y, ty = taps_on(h, out_h, x.device)
+    lo_x, hi_x, tx = taps_on(w, out_w, x.device)
+    ty = ty.view(out_h, 1)
+    rows = (1 - ty) * x.index_select(2, lo_y) + ty * x.index_select(2, hi_y)
+    return ((1 - tx) * rows.index_select(3, lo_x)
+            + tx * rows.index_select(3, hi_x))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,41 @@
+"""``latest.pth`` / ``best.pth``: the model's weights, reference-named.
+
+Counterpart of the ``.pth`` half of ``dasemanticsegmentationaml_tpu/
+cli.py::make_checkpoint_fn`` (:87-125; reference train.py:106-117, which
+saves ``model.module.state_dict()``). The port's modules carry the
+reference's names, so the state dict without ``num_batches_tracked`` is
+the 216 tensors the JAX package writes (``torch_io.
+variables_to_torch_state``): the file loads into the JAX package through
+``torch_io.load_pretrained`` and into the port through
+``utils/weights.py::load_pretrain``. The JAX package's orbax full state,
+its EPOCH marker and ``--resume`` are still to be ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+
+def reference_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's reference-named tensors, on the CPU."""
+    return {k: v.detach().to("cpu", copy=True).contiguous()
+            for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def make_checkpoint_fn(save_model_path=None):
+    """checkpoint_fn(model, name) writes ``<dir>/<name>.pth``, the
+    directory being ``save_model_path`` or ``./checkpoints``."""
+    save_dir = save_model_path or "./checkpoints"
+
+    def checkpoint_fn(model: nn.Module, name: str) -> str:
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, f"{name}.pth")
+        torch.save(reference_state(model), path)
+        return path
+
+    return checkpoint_fn

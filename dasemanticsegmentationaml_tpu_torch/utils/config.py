@@ -8,8 +8,9 @@ default, type and choices against the JAX parser. Boolean flags take
 ``str2bool`` as there (the reference's ``type=bool`` made
 ``--domain_shift False`` truthy, train.py:408-437).
 
-The port runs ``--domain_shift`` evaluation; the CLI stops with
-``SystemExit`` on the flags of paths still to be ported.
+The port runs supervised training and ``--domain_shift`` evaluation; the
+CLI stops with ``SystemExit`` on the flags of paths still to be ported.
+``parse_args`` sets ``args.ohem`` as the JAX one does (config.py:255-262).
 """
 
 from __future__ import annotations
@@ -51,15 +52,16 @@ _FLAGS = (
     ("--pretrain_path", str, "", None,
      "full net iff '.pth' in the path, else backbone iff 'STDCNet'"),
     ("--use_conv_last", str2bool, False, None, "apply conv_last to feat32"),
-    ("--num_epochs", int, 50, None, _TODO),
-    ("--epoch_start_i", int, 0, None, _TODO),
-    ("--checkpoint_step", int, 10, None, _TODO),
-    ("--validation_step", int, 1, None, _TODO),
+    ("--num_epochs", int, 50, None, "training epochs"),
+    ("--epoch_start_i", int, 0, None, "first epoch"),
+    ("--checkpoint_step", int, 10, None, "latest.pth every n epochs"),
+    ("--validation_step", int, 1, None,
+     "validate (and best.pth) every n epochs"),
     ("--crop_height", int, 512, None, "resize height argument"),
     ("--crop_width", int, 1024, None, "resize width argument"),
-    ("--batch_size", int, 8, None, _TODO),
+    ("--batch_size", int, 8, None, "training batch size"),
     ("--eval_batch_size", int, 1, None, "validation batch size"),
-    ("--learning_rate", float, 0.01, None, _TODO),
+    ("--learning_rate", float, 0.01, None, "base LR (poly decay)"),
     ("--learning_rate_D", float, 1e-3, None, _TODO),
     ("--num_workers", int, 4, None, "decode threads"),
     ("--worker_timeout", float, 120.0, None, _TODO),
@@ -69,10 +71,11 @@ _FLAGS = (
      "device: 'cpu', or the index n of cuda:n (no silent CPU fallback)"),
     ("--use_gpu", str2bool, True, None,
      "accepted for CLI compat; --cuda picks the device"),
-    ("--save_model_path", str, None, None, _TODO),
-    ("--optimizer", str, "sgd", None, _TODO),
-    ("--loss", str, "crossentropy", None, _TODO),
-    ("--iter_size", int, 1, None, _TODO),
+    ("--save_model_path", str, None, None,
+     "latest.pth / best.pth directory (default ./checkpoints)"),
+    ("--optimizer", str, "sgd", None, "sgd | adam | rmsprop"),
+    ("--loss", str, "crossentropy", None, "crossentropy | ohem"),
+    ("--iter_size", int, 1, None, "more than 1: " + _TODO),
     ("--domain_shift", str2bool, False, None,
      "evaluate --pretrain_path on the val set"),
     ("--domain_adaptation", str2bool, False, None, _TODO),
@@ -98,8 +101,8 @@ _FLAGS = (
      _TODO),
     ("--nni_faithful_lr", str2bool, False, None, _TODO),
     ("--seed", int, 0, None, "seed of the random initial weights"),
-    ("--ohem_threshold", float, 0.7, None, _TODO),
-    ("--ohem_keep_num", int, 65536, None, _TODO),
+    ("--ohem_threshold", float, 0.7, None, "--loss ohem threshold"),
+    ("--ohem_keep_num", int, 65536, None, "--loss ohem keep count"),
     ("--use_fused_eval", str2bool, True, None,
      "fused upsample+argmax (the CUDA kernel on a CUDA device)"),
     ("--eval_scan_window", int, 0, None, "accepted; the port has no scan"),
@@ -117,18 +120,20 @@ _FLAGS = (
     ("--process_id", int, None, None, _TODO),
     ("--eval_process_shard", str2bool, True, None, _TODO),
     ("--data_cache", str, None, None, _TODO),
-    ("--jsonl_log", str, None, None, _TODO),
-    ("--tensorboard", str2bool, True, None, "accepted; eval logs nothing"),
+    ("--jsonl_log", str, None, None, "per-epoch JSONL log file"),
+    ("--tensorboard", str2bool, True, None,
+     "TensorBoard scalars under runs/ (training)"),
     ("--profile_dir", str, None, None, _TODO),
-    ("--max_steps_per_epoch", int, None, None, _TODO),
+    ("--max_steps_per_epoch", int, None, None,
+     "cap the steps of each epoch"),
 )
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="BiSeNet-STDC813 segmentation on PyTorch + CUDA "
-                    "(port of dasemanticsegmentationaml_tpu; --domain_shift "
-                    "evaluation)")
+                    "(port of dasemanticsegmentationaml_tpu: supervised "
+                    "training, --domain_shift evaluation)")
     for flag, typ, default, choices, help_ in _FLAGS:
         p.add_argument(flag, type=typ, default=default, choices=choices,
                        help=help_)
@@ -136,4 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    return build_parser().parse_args(argv)
+    args = build_parser().parse_args(argv)
+    args.ohem = ({"threshold": args.ohem_threshold,
+                  "keep_num": args.ohem_keep_num}
+                 if args.loss == "ohem" else None)
+    return args

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
 from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
 
@@ -54,3 +55,74 @@ def test_kernel_rejects_non_contiguous(cuda_device):
     x = torch.zeros(1, 8, 16, 19, device=cuda_device).permute(0, 3, 1, 2)
     with pytest.raises(ValueError):
         ua.upsample_argmax(x, (32, 64))
+
+
+def _ce_labels(device, shape, seed, all_ignored=False):
+    """~10% ignore (255), ~5% in 19..254, the rest valid; or all 255."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 19, shape)
+    r = rng.random(shape)
+    y = np.where(r < 0.10, 255, y)
+    y = np.where((r >= 0.10) & (r < 0.15), rng.integers(19, 255, shape), y)
+    if all_ignored:
+        y = np.full(shape, 255)
+    return torch.from_numpy(y.astype(np.int32)).to(device)
+
+
+def _ce_value_and_grad(fn, x, labels, out_hw):
+    x = x.detach().requires_grad_()
+    loss = fn(x, labels, out_hw)
+    (grad,) = torch.autograd.grad(loss, x)
+    return loss.detach(), grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,out_hw,all_ignored", [
+    ((2, 19, 64, 32), (512, 256), False),
+    ((1, 19, 7, 13), (37, 50), False),
+    ((2, 19, 64, 128), (64, 128), False),
+    ((1, 19, 1, 13), (37, 50), False),
+    ((1, 19, 1, 1), (3, 5), False),
+    ((2, 19, 8, 16), (64, 128), True),
+])
+def test_fused_ce_equals_plain_version(cuda_device, shape, out_hw,
+                                       all_ignored, dtype):
+    """Loss within 1e-5 of |loss|; gradient within 1e-4 of its max, plus
+    one bf16 ulp (at most 2^-7 |grad|) for bf16 gradients; a second run
+    bit-identical; one launch of each kernel per call."""
+    x = _logits(cuda_device, shape, 0, False, dtype)
+    labels = _ce_labels(cuda_device, (shape[0], *out_hw), 1, all_ignored)
+    before = (fc.FWD_LAUNCHES, fc.BWD_LAUNCHES)
+    loss, grad = _ce_value_and_grad(fc.cross_entropy_upsampled, x, labels,
+                                    out_hw)
+    loss2, grad2 = _ce_value_and_grad(fc.cross_entropy_upsampled, x, labels,
+                                      out_hw)
+    torch.cuda.synchronize()
+    assert (fc.FWD_LAUNCHES, fc.BWD_LAUNCHES) == (before[0] + 2,
+                                                  before[1] + 2)
+    assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+    assert grad.dtype == dtype and loss.dtype == torch.float32
+    want, want_grad = _ce_value_and_grad(
+        fc.cross_entropy_upsampled_reference, x, labels, out_hw)
+    if all_ignored:
+        assert loss.item() == 0.0 and not grad.any()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    bound = 1e-4 * want_grad.float().abs().max()
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0**-7 * want_grad.float().abs()
+    assert bool(((grad.float() - want_grad.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_fused_ce_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(1, 19, 8, 16, device=cuda_device)
+    with pytest.raises(TypeError):  # int64 labels
+        fc.cross_entropy_upsampled(
+            x, torch.zeros(1, 32, 64, dtype=torch.int64, device=cuda_device),
+            (32, 64))
+    with pytest.raises(ValueError):  # more classes than the kernel keeps
+        fc.cross_entropy_upsampled(
+            torch.zeros(1, 40, 8, 16, device=cuda_device),
+            torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda_device),
+            (32, 64))

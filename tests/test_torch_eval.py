@@ -230,7 +230,10 @@ def test_domain_shift_cli_matches_jax(tmp_path, dataset):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--domain_shift", "False"],
+    ["--iter_size", "2"],
+    ["--aug_type", "CS-HF"],
+    ["--resume", "runs/ckpt"],
+    ["--profile_dir", "runs/trace"],
     ["--domain_adaptation", "True"],
     ["--quantize_int8", "True"],
     ["--export_model", "model.bin"],

@@ -31,13 +31,17 @@ def _run(code, cwd=REPO):
 def test_port_imports_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         [PKG], prefix="dasemanticsegmentationaml_tpu_torch."))
-    assert "dasemanticsegmentationaml_tpu_torch.cli" in modules
+    assert {f"dasemanticsegmentationaml_tpu_torch.{m}" for m in (
+        "cli", "ops.losses", "ops.schedules", "ops.cuda.fused_ce",
+        "train.optim", "train.supervised", "utils.checkpoint",
+        "utils.logging_util", "utils.tb_writer")} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "from dasemanticsegmentationaml_tpu_torch.cli import main\n"
         "from dasemanticsegmentationaml_tpu_torch.utils.config import parse_args\n"
         "parse_args(['--domain_shift', 'True'])\n"
+        "from dasemanticsegmentationaml_tpu_torch.train.supervised import train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "        'dasemanticsegmentationaml_tpu')]\n"
