@@ -1,25 +1,32 @@
-"""CLI entry point: the reference train.py's supervised and
-``--domain_shift`` modes.
+"""CLI entry point: the reference train.py's supervised, adversarial
+domain-adaptation and ``--domain_shift`` modes.
 
 Counterpart of ``dasemanticsegmentationaml_tpu/cli.py`` (main :281;
-datasets :312-403; the eval-only branch :472-476 and :591-599; the
-supervised branch :713-763). Without ``--domain_shift`` it trains
+datasets :312-403; the eval-only branch :472-476 and :591-599; the DA
+branch :601-711; the supervised branch :713-763). By default it trains
 BiSeNet-STDC813 on the Cityscapes train split (or the GTA5 75% split with
 ``--dataset GTAV``), validating and checkpointing as the reference's
 ``train()`` does (train.py:63-120), and ends with a full validation. With
-``--domain_shift True`` it evaluates ``--pretrain_path`` on the val set,
-printing precision and mIoU like the reference's ``val()``
-(train.py:24-61).
+``--domain_adaptation True`` it adapts from GTA5 (``--root_source``) to
+the Cityscapes train split (``--root_target``) with a discriminator, as
+the reference's ``train_DA()`` (train.py:134-299), validating on the
+``--root`` val set. With ``--domain_shift True`` it evaluates
+``--pretrain_path`` on the val set, printing precision and mIoU like the
+reference's ``val()`` (train.py:24-61).
 
 ``--cuda`` picks the device: ``cpu``, or the index ``n`` of ``cuda:n``;
 without CUDA the latter stops with ``SystemExit``, it never drops to the
-CPU. Domain adaptation, ``--iter_size > 1``, ``--aug_type``, ``--resume``,
+CPU. ``--iter_size > 1`` (supervised), ``--aug_type``, ``--resume``,
 ``--profile_dir``, int8, export, the data cache, host augmentation and
 multi-device or multi-process runs stop with
-``SystemExit("...: not ported yet: see ROADMAP.md")``.
+``SystemExit("...: not ported yet: see ROADMAP.md")``; ``--iter_size > 1``
+with ``--domain_adaptation`` stops with the JAX package's reason.
 
 Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --root <cityscapes> --cuda 0
+      python -m dasemanticsegmentationaml_tpu_torch.cli \
+          --domain_adaptation True --root_source <gta5> \
+          --root_target <cityscapes> --root <cityscapes> --cuda 0
       python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
           --root <cityscapes> --pretrain_path best.pth --cuda 0
 """
@@ -33,15 +40,21 @@ import torch
 from .data.datasets import CityScapes, GtaV, Subset, train_val_split
 from .data.pipeline import Loader, prepare_batch
 from .models.bisenet import build_bisenet, trainable_parameters
+from .models.discriminator import build_discriminator
+from .train.adversarial import make_da_step, train_da
 from .train.evaluate import evaluate
 from .train.optim import make_optimizer
 from .train.supervised import make_train_step, train
 from .utils.checkpoint import make_checkpoint_fn
 from .utils.config import parse_args
 from .utils.logging_util import JsonlLogger, make_writer
-from .utils.weights import load_pretrain
+from .utils.weights import load_pretrain, load_pretrain_discriminator
 
 NOT_PORTED = "not ported yet: see ROADMAP.md"
+#: JAX cli.py:603-611
+DA_ITER_SIZE = ("--iter_size > 1 is supervised-only: the 4-phase DA step "
+                "applies the phase-1 update before phase 2, which gradient "
+                "accumulation would defer")
 
 
 def resolve_device(cuda: str) -> torch.device:
@@ -64,9 +77,12 @@ def resolve_device(cuda: str) -> torch.device:
 
 
 def check_ported(args) -> None:
-    """Stop on every flag whose path the port does not have yet."""
+    """Stop on every flag whose path the port does not have yet, and on
+    ``--iter_size > 1`` with ``--domain_adaptation`` as the JAX CLI does
+    (gradient accumulation cannot be grafted onto the 4-phase step)."""
+    if args.domain_adaptation and args.iter_size > 1:
+        raise SystemExit(DA_ITER_SIZE)
     unported = {
-        "--domain_adaptation True": args.domain_adaptation,
         "--iter_size > 1": args.iter_size > 1,
         "--aug_type": args.aug_type is not None,
         "--profile_dir": args.profile_dir,
@@ -116,7 +132,9 @@ def main(argv=None):
         val_ds = Subset(dataset, val_idx)
         remap = True
     else:
-        train_ds = None if args.domain_shift else CityScapes(
+        # neither eval-only mode nor DA uses a train split from --root
+        train_ds = None if args.domain_shift or args.domain_adaptation \
+            else CityScapes(
             "train", args.root, args.crop_height, args.crop_width,
             faithful_resize=args.faithful_resize)
         val_ds = CityScapes("val", args.root, args.crop_height,
@@ -134,7 +152,7 @@ def main(argv=None):
     load_pretrain(model, args.pretrain_path)
     amp_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
 
-    def prepare(batch):
+    def prepare(batch, remap=remap):
         images, labels = batch
         return prepare_batch(images, labels, device=device, remap=remap,
                              dtype=amp_dtype or torch.float32)
@@ -149,8 +167,12 @@ def main(argv=None):
             # eval-only mode (reference train.py:511,519)
             precision, miou = evaluate_fn(model)
             return {"precision": precision, "miou": miou}
-        max_miou = _train_supervised(args, model, train_ds, prepare,
-                                     evaluate_fn, amp_dtype, pin)
+        if args.domain_adaptation:
+            max_miou = _train_da(args, model, prepare, evaluate_fn,
+                                 amp_dtype, device)
+        else:
+            max_miou = _train_supervised(args, model, train_ds, prepare,
+                                         evaluate_fn, amp_dtype, pin)
         model.eval()
         precision, miou = evaluate_fn(model)
     return {"precision": precision, "miou": miou, "max_miou": max_miou}
@@ -178,6 +200,62 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
                      evaluate_fn=evaluate_fn, train_step=step,
                      writer=writer, logger=logger,
                      checkpoint_fn=make_checkpoint_fn(args.save_model_path))
+    finally:
+        logger.close()
+        if writer is not None:
+            writer.close()
+
+
+def _train_da(args, model, prepare, evaluate_fn, amp_dtype, device) -> float:
+    """The DA branch (JAX cli.py:601-711; reference train.py:134-299):
+    GTA5 source batches (raw ids remapped) shuffled with ``seed``,
+    Cityscapes target batches shuffled with ``seed + 1``; the
+    discriminator seeded with ``seed + 2``; SGD for G with ``--momentum``
+    and ``--weight_decay`` (train.py:170-171), Adam(0.9, 0.99) for D
+    (train.py:172)."""
+    pin = device.type == "cuda"
+    source_ds = GtaV(args.root_source, args.crop_height, args.crop_width,
+                     faithful_resize=args.faithful_resize)
+    target_ds = CityScapes("train", args.root_target, args.crop_height,
+                           args.crop_width,
+                           faithful_resize=args.faithful_resize)
+    loader_source = Loader(source_ds, args.batch_size, shuffle=True,
+                           seed=args.seed, drop_last=True,
+                           num_workers=args.num_workers, pin_memory=pin)
+    loader_target = Loader(target_ds, args.batch_size, shuffle=True,
+                           seed=args.seed + 1, drop_last=True,
+                           num_workers=args.num_workers, pin_memory=pin)
+    d_model = build_discriminator(
+        args.num_classes, args.depthwise, args.batch_norm, device=device,
+        generator=torch.Generator().manual_seed(args.seed + 2))
+    if args.depthwise:
+        print("You are using depthwise separable convolution for the "
+              "discrminator "
+              + ("with" if args.batch_norm else "without")
+              + " batch normalization...")
+    if args.d_pretrain_path:
+        load_pretrain_discriminator(d_model, args.d_pretrain_path)
+    g_opt = make_optimizer("sgd", trainable_parameters(model,
+                                                       args.use_conv_last),
+                           args.learning_rate, momentum=args.momentum,
+                           weight_decay=args.weight_decay)
+    d_opt = make_optimizer("adam", d_model.parameters(), args.learning_rate_D,
+                           betas=(0.9, 0.99))
+    step = make_da_step(model, d_model, g_opt, d_opt,
+                        lambda_adv=args.lambda_adv_target1,
+                        d_head=args.d_head, step_mode=args.da_step_mode,
+                        amp_dtype=amp_dtype)
+    writer = make_writer(args.tensorboard)
+    logger = JsonlLogger(args.jsonl_log)
+    try:
+        return train_da(
+            args, model, d_model, g_opt, d_opt, loader_source, loader_target,
+            prepare_source=lambda b: prepare(b, remap=True),
+            prepare_target=lambda b: prepare(b, remap=False),
+            evaluate_fn=evaluate_fn, da_step=step, writer=writer,
+            logger=logger,
+            checkpoint_fn=make_checkpoint_fn(args.save_model_path),
+            lr_mode="nni_faithful" if args.nni_faithful_lr else "reference")
     finally:
         logger.close()
         if writer is not None:

@@ -1,9 +1,11 @@
-"""Losses: CE with an ignore label, and OHEM CE, NCHW.
+"""Losses: CE with an ignore label, OHEM CE and BCE with logits, NCHW.
 
 Counterpart of ``dasemanticsegmentationaml_tpu/ops/losses.py``
-(``cross_entropy_ignore`` :43-58, ``ohem_cross_entropy`` :61-90), after
-the reference's ``CrossEntropyLoss(ignore_index=255)`` on each head
-(train.py:66,86-89) and ``OHEM_CrossEntroy_Loss`` (utils.py:256-271).
+(``cross_entropy_ignore`` :43-58, ``ohem_cross_entropy`` :61-90,
+``bce_with_logits`` :93-101), after the reference's
+``CrossEntropyLoss(ignore_index=255)`` on each head (train.py:66,86-89),
+``OHEM_CrossEntroy_Loss`` (utils.py:256-271) and the discriminator's
+``BCEWithLogitsLoss`` (train.py:173).
 
 A pixel counts when ``label != ignore_index and 0 <= label < C`` (JAX
 losses.py:27): labels 19..254 are not an error, they are skipped. The
@@ -12,7 +14,7 @@ index op out of range (``F.cross_entropy`` on a CUDA tensor asserts on
 them). An all-ignored batch gives loss 0 and zero gradients, because the
 count is clamped to 1 (JAX losses.py:48-58), where torch's
 ``reduction='mean'`` would give NaN. Reductions run in fp32 whatever the
-logits' dtype. ``bce_with_logits`` comes with the domain-adaptation slice.
+logits' dtype.
 """
 
 from __future__ import annotations
@@ -65,3 +67,13 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     n_topk = finite.sum().float().clamp_min(1.0)
     mean_topk = torch.where(finite, topk, 0.0).sum() / n_topk
     return torch.where(kth > threshold, mean_above, mean_topk)
+
+
+def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean BCE-with-logits against a constant ``target`` (the domain
+    label), in fp32: ``max(x, 0) - x*y + log1p(exp(-|x|))`` (JAX
+    losses.py:93-101, torch's stable form)."""
+    x = logits.float()
+    loss = torch.clamp_min(x, 0.0) - x * float(target) \
+        + torch.log1p(torch.exp(-x.abs()))
+    return loss.mean()

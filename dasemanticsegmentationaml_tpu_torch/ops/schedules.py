@@ -1,12 +1,14 @@
 """Learning-rate schedules.
 
-``poly_lr`` and ``PolyLR`` are copied verbatim from
-``dasemanticsegmentationaml_tpu/ops/schedules.py`` (:25-88), which the
+``poly_lr``, ``PolyLR`` and ``ConstantLR`` are copied verbatim from
+``dasemanticsegmentationaml_tpu/ops/schedules.py`` (:25-115), which the
 port may not import. The reference decays the LR once per epoch with a
 polynomial schedule (reference utils.py:11-26): ``lr = init_lr * (1 -
 iter/max_iter) ** power``. The supervised trainer uses ``mode="standard"``
 (reference train.py:71; JAX supervised.py:135); ``"compounding"`` is the
-domain-adaptation schedule (reference train.py:185-186).
+domain-adaptation schedule (reference train.py:185-186). ``ConstantLR``
+is the discriminator's LR under ``--nni_faithful_lr`` (reference
+train_nni.py:97-98).
 """
 
 from __future__ import annotations
@@ -60,3 +62,20 @@ class PolyLR:
         beyond setting _current)."""
         for epoch in range(start_epoch):
             self(epoch)
+
+
+@dataclass
+class ConstantLR:
+    """A never-decayed LR with the PolyLR call surface (JAX
+    schedules.py:92-115): under the NNI trial's faithful LR dataflow
+    (train_nni.py:97-98) both ``poly_lr_scheduler`` calls mutate the
+    generator's optimizer, so the discriminator trains at a constant
+    ``learning_rate_D`` (see train/adversarial.py::train_da)."""
+
+    base_lr: float
+
+    def __call__(self, epoch: int) -> float:
+        return self.base_lr
+
+    def fast_forward(self, start_epoch: int) -> None:
+        pass

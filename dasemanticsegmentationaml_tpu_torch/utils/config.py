@@ -8,8 +8,9 @@ default, type and choices against the JAX parser. Boolean flags take
 ``str2bool`` as there (the reference's ``type=bool`` made
 ``--domain_shift False`` truthy, train.py:408-437).
 
-The port runs supervised training and ``--domain_shift`` evaluation; the
-CLI stops with ``SystemExit`` on the flags of paths still to be ported.
+The port runs supervised training, adversarial domain adaptation and
+``--domain_shift`` evaluation; the CLI stops with ``SystemExit`` on the
+flags of paths still to be ported.
 ``parse_args`` sets ``args.ohem`` as the JAX one does (config.py:255-262).
 """
 
@@ -44,8 +45,10 @@ _TODO = "not ported yet (ROADMAP.md)"
 # (flag, type, default, choices, help)
 _FLAGS = (
     ("--root", str, "../Datasets/Cityscapes", None, "dataset root"),
-    ("--root_source", str, "../Datasets/GTA5", None, _TODO),
-    ("--root_target", str, "../Datasets/Cityscapes", None, _TODO),
+    ("--root_source", str, "../Datasets/GTA5", None,
+     "DA: the GTA5 source tree (images/, labels/)"),
+    ("--root_target", str, "../Datasets/Cityscapes", None,
+     "DA: the Cityscapes target tree (its train split)"),
     ("--dataset", str, "Cityspaces", None,
      "GTAV or Cityspaces (GTAV evaluates on its 25%% val split)"),
     ("--backbone", str, "STDCNet813", None, "STDC1 family only"),
@@ -62,7 +65,8 @@ _FLAGS = (
     ("--batch_size", int, 8, None, "training batch size"),
     ("--eval_batch_size", int, 1, None, "validation batch size"),
     ("--learning_rate", float, 0.01, None, "base LR (poly decay)"),
-    ("--learning_rate_D", float, 1e-3, None, _TODO),
+    ("--learning_rate_D", float, 1e-3, None,
+     "DA: the discriminator's Adam LR (compounding poly decay)"),
     ("--num_workers", int, 4, None, "decode threads"),
     ("--worker_timeout", float, 120.0, None, _TODO),
     ("--fetch_timeout", float, 900.0, None, _TODO),
@@ -75,16 +79,22 @@ _FLAGS = (
      "latest.pth / best.pth directory (default ./checkpoints)"),
     ("--optimizer", str, "sgd", None, "sgd | adam | rmsprop"),
     ("--loss", str, "crossentropy", None, "crossentropy | ohem"),
-    ("--iter_size", int, 1, None, "more than 1: " + _TODO),
+    ("--iter_size", int, 1, None,
+     "more than 1: " + _TODO + "; stops with --domain_adaptation"),
     ("--domain_shift", str2bool, False, None,
      "evaluate --pretrain_path on the val set"),
-    ("--domain_adaptation", str2bool, False, None, _TODO),
-    ("--momentum", float, 0.9, None, _TODO),
-    ("--weight_decay", float, 5e-4, None, _TODO),
-    ("--lambda_adv_target1", float, 0.001, None, _TODO),
+    ("--domain_adaptation", str2bool, False, None,
+     "adversarial GTA5 -> Cityscapes adaptation (reference train_DA)"),
+    ("--momentum", float, 0.9, None, "DA: the generator's SGD momentum"),
+    ("--weight_decay", float, 5e-4, None,
+     "DA: the generator's SGD weight decay"),
+    ("--lambda_adv_target1", float, 0.001, None,
+     "DA: weight of the adversarial loss on the generator"),
     ("--aug_type", str, None, None, "training augmentation; " + _TODO),
-    ("--depthwise", str2bool, False, None, _TODO),
-    ("--batch_norm", str2bool, False, None, _TODO),
+    ("--depthwise", str2bool, False, None,
+     "DA: depthwise-separable discriminator"),
+    ("--batch_norm", str2bool, False, None,
+     "DA: BatchNorm in the depthwise-separable discriminator"),
     ("--dtype", str, "bfloat16", ("bfloat16", "float32"),
      "compute dtype: bfloat16 = torch.autocast, float32 = no TF32"),
     ("--faithful_resize", str2bool, True, None,
@@ -95,11 +105,14 @@ _FLAGS = (
     ("--sync_bn", str2bool, True, None, _TODO),
     ("--num_devices", int, None, None, "more than 1: " + _TODO),
     ("--spatial_devices", int, 1, None, "more than 1: " + _TODO),
-    ("--d_pretrain_path", str, "", None, _TODO),
-    ("--d_head", int, 0, (0, 2), _TODO),
+    ("--d_pretrain_path", str, "", None,
+     "DA: discriminator .pth to start from (its kind must match)"),
+    ("--d_head", int, 0, (0, 2),
+     "DA: head fed to the discriminator (0 main, 2 out32)"),
     ("--da_step_mode", str, "interleaved", ("interleaved", "combined"),
-     _TODO),
-    ("--nni_faithful_lr", str2bool, False, None, _TODO),
+     "DA: reference 4-phase step, or the NNI trial's accumulated one"),
+    ("--nni_faithful_lr", str2bool, False, None,
+     "DA: the NNI trial's LR dataflow (D never decays)"),
     ("--seed", int, 0, None, "seed of the random initial weights"),
     ("--ohem_threshold", float, 0.7, None, "--loss ohem threshold"),
     ("--ohem_keep_num", int, 65536, None, "--loss ohem keep count"),
@@ -133,7 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="BiSeNet-STDC813 segmentation on PyTorch + CUDA "
                     "(port of dasemanticsegmentationaml_tpu: supervised "
-                    "training, --domain_shift evaluation)")
+                    "training, domain adaptation, --domain_shift "
+                    "evaluation)")
     for flag, typ, default, choices, help_ in _FLAGS:
         p.add_argument(flag, type=typ, default=default, choices=choices,
                        help=help_)

@@ -105,3 +105,27 @@ def load_pretrain(model: nn.Module, path: str) -> nn.Module:
         raise SystemExit(f"--pretrain_path {path}: ZERO tensors matched "
                          f"{kind} — wrong checkpoint kind?")
     return model
+
+
+def load_pretrain_discriminator(model: nn.Module, path: str) -> nn.Module:
+    """``--d_pretrain_path`` (JAX cli.py:639-649): a non-strict load whose
+    every key must name a tensor of this discriminator with its shape, so
+    that a checkpoint of another kind (``--depthwise`` / ``--batch_norm``)
+    stops the run instead of loading nothing. ``module.`` prefixes go."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(obj, dict):
+        raise SystemExit(f"--d_pretrain_path {path}: not a state dict")
+    state = _clean(obj)
+    own = {k: v for k, v in model.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    not_in_model = sorted(k for k in state if k not in own)
+    mismatched = sorted((k, tuple(v.shape), tuple(own[k].shape))
+                        for k, v in state.items()
+                        if k in own and tuple(v.shape) != tuple(own[k].shape))
+    if not_in_model or mismatched:
+        raise SystemExit(
+            f"--d_pretrain_path {path}: keys not in this discriminator "
+            f"{not_in_model} / shape mismatches {mismatched} — check "
+            "--depthwise/--batch_norm match the checkpoint")
+    load_reference_state(model, state, strict=False)
+    return model

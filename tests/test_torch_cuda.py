@@ -126,3 +126,101 @@ def test_fused_ce_rejects_what_the_kernel_does_not_take(cuda_device):
             torch.zeros(1, 40, 8, 16, device=cuda_device),
             torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda_device),
             (32, 64))
+
+
+def _folded_block(stride, in_c, out_c, dtype, device, seed=0):
+    """A CatBottleneck with seeded weights and running statistics away
+    from identity, folded for the kernel."""
+    from dasemanticsegmentationaml_tpu_torch.models.stdcnet import (
+        CatBottleneck)
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+
+    gen = torch.Generator().manual_seed(seed)
+    block = CatBottleneck(in_c, out_c, 4, stride)
+    with torch.no_grad():
+        for name, t in block.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            if name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif name.endswith("weight") and t.dim() == 4:
+                fan_in = t[0].numel()
+                t.copy_(torch.randn(t.shape, generator=gen)
+                        * (2.0 / fan_in) ** 0.5)
+            else:
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen)
+                        + (1.0 if name.endswith("bn.weight") else 0.0))
+    return fs.fold_cat_params(block.to(device).eval(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,in_c,out_c,shape", [
+    (1, 64, 128, (2, 64, 19, 37)),     # odd sizes
+    (2, 64, 128, (2, 64, 38, 22)),
+    (2, 16, 64, (1, 16, 2, 5)),        # H = 2, width below one tile
+])
+def test_fused_cat_equals_plain_version(cuda_device, stride, in_c, out_c,
+                                        shape, dtype):
+    """fp32 within 1e-4 of max|plain| (TF32 off for the plain version);
+    bf16 within 2e-2 (tests/test_fused_stdc.py:32): both round each
+    intermediate to bf16, and a sum in another order can flip a rounding.
+    A second run is bit-identical; one launch per call."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+
+    fp = _folded_block(stride, in_c, out_c, dtype, cuda_device)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        shape).astype(np.float32)).to(cuda_device, dtype)
+    before = (fs.S1_LAUNCHES, fs.S2_LAUNCHES)
+    got = fs.fused_cat_bottleneck(x, fp)
+    again = fs.fused_cat_bottleneck(x, fp)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = fs.fused_cat_bottleneck_plain(x, fp)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    torch.cuda.synchronize()
+    s1, s2 = fs.S1_LAUNCHES - before[0], fs.S2_LAUNCHES - before[1]
+    assert (s1, s2) == ((2, 0) if stride == 1 else (0, 2))
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, again)
+    bound = (1e-4 if dtype == torch.float32 else 2e-2) * \
+        want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_fused_cat_rejects_what_the_kernel_does_not_take(cuda_device):
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+
+    fp = _folded_block(2, 16, 32, torch.bfloat16, cuda_device)
+    with pytest.raises(TypeError):  # fp32 input, bf16 weights
+        fs.fused_cat_bottleneck(torch.zeros(1, 16, 8, 8, device=cuda_device),
+                                fp)
+    cpu_fp = _folded_block(2, 16, 32, torch.bfloat16, "cpu")
+    with pytest.raises(ValueError):  # weights on another device
+        fs.fused_cat_bottleneck(
+            torch.zeros(1, 16, 8, 8, device=cuda_device, dtype=torch.bfloat16),
+            cpu_fp)
+
+
+@pytest.mark.cuda
+def test_fused_cat_without_a_build_raises(cuda_device, tmp_path, monkeypatch):
+    """No fallback on a card: when the kernel cannot be built, a CUDA
+    tensor raises instead of taking the plain version."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import build
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+
+    fp = _folded_block(1, 16, 32, torch.float32, cuda_device)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "_LIBS", {})
+    fs._library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fs.fused_cat_bottleneck(
+                torch.zeros(1, 16, 8, 8, device=cuda_device), fp)
+    finally:
+        fs._library.cache_clear()

@@ -33,8 +33,10 @@ def test_port_imports_no_jax():
         [PKG], prefix="dasemanticsegmentationaml_tpu_torch."))
     assert {f"dasemanticsegmentationaml_tpu_torch.{m}" for m in (
         "cli", "ops.losses", "ops.schedules", "ops.cuda.fused_ce",
-        "train.optim", "train.supervised", "utils.checkpoint",
-        "utils.logging_util", "utils.tb_writer")} <= set(modules)
+        "ops.cuda.fused_stdc", "ops.norm", "models.discriminator",
+        "train.adversarial", "train.optim", "train.supervised",
+        "utils.checkpoint", "utils.logging_util", "utils.tb_writer")
+    } <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -42,6 +44,7 @@ def test_port_imports_no_jax():
         "from dasemanticsegmentationaml_tpu_torch.utils.config import parse_args\n"
         "parse_args(['--domain_shift', 'True'])\n"
         "from dasemanticsegmentationaml_tpu_torch.train.supervised import train\n"
+        "from dasemanticsegmentationaml_tpu_torch.train.adversarial import train_da\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "        'dasemanticsegmentationaml_tpu')]\n"
