@@ -5,9 +5,10 @@
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
                   fallback); prints its name and power limit from nvidia-smi.
-2. build       -- compiles csrc/upsample_argmax.cu, csrc/fused_ce.cu and
-                  csrc/fused_stdc.cu with nvcc for sm_90a, one nvcc each, all
-                  at once; prints ptxas.
+2. build       -- compiles csrc/upsample_argmax.cu, csrc/fused_ce.cu,
+                  csrc/fused_stdc.cu, csrc/copy_probe.cu and csrc/tile_roll.cu
+                  with nvcc for sm_90a, one nvcc each, all at once; prints
+                  ptxas.
 3. kernel      -- the fused upsample+argmax kernel against its plain PyTorch
                   version on the card, bit for bit, on random-normal and
                   tie-heavy logits in fp32 and bf16, at the main path's shapes
@@ -21,34 +22,48 @@
                   against their plain PyTorch version on folded weights, at
                   the six STDC813 bottleneck shapes at batch 8, 1024x512 and
                   at edge shapes, in fp32 and bf16; two runs bit-identical.
-6. stdc-path   -- the fused bottleneck's own path (not wired into any CLI,
+6. copy-probe  -- the three copy kernels (copy_block, copy_direct and the TMA
+                  ring copy_bounce at 2 and 8 slots) against x.clone(), bit
+                  for bit, at 16384x8192 bf16 and at edge sizes; then their
+                  path, the probe_copy entry point at 16384x8192 bf16 (the
+                  counts reset before and read after), and copy_ and x + 0
+                  (the library yardsticks) and x.clone() by the probe's own
+                  protocol, with GB/s and the share of 3.35 TB/s.
+7. roll-kernel -- tile_roll against its plain version (slices + cat) and
+                  torch.roll, bit for bit, in fp32, int32, bf16 and int16
+                  at (8, 128) and at edge shapes and shifts; then its
+                  path, the roll_repro entry
+                  point (the count reset before and read after); then the
+                  kernel, its plain version and torch.roll at 16384x8192 bf16
+                  in turns A B B A.
+8. stdc-path   -- the fused bottleneck's own path (not wired into any CLI,
                   as in the JAX package): a seeded STDCNet813 in eval mode,
                   its features[2:8] folded and run as six fused launches in
                   bf16 at batch 8, 1024x512 (the counts reset before and read
                   after), against the eager modules in fp32.
-7. model       -- full-width BiSeNet-STDC813 (seeded weights) at 2x3x512x1024:
+9. model       -- full-width BiSeNet-STDC813 (seeded weights) at 2x3x512x1024:
                   fp32 features on the card against the same module on the CPU
                   (TF32 off), and bf16 autocast predictions against fp32.
-8. slice       -- the port's --domain_shift CLI on a synthetic 4-image
+10. slice      -- the port's --domain_shift CLI on a synthetic 4-image
                   Cityscapes val tree at 1024x512 on cuda:0 in bf16 (the
                   kernel's launch count is reset before and read after), then
                   fp32 on the card against fp32 on the CPU.
-9. train       -- the port's supervised CLI on a synthetic 16 + 4 image tree
+11. train      -- the port's supervised CLI on a synthetic 16 + 4 image tree
                   at 1024x512, batch 8, bf16, 2 epochs of 2 steps (the
                   kernels' counts reset before and read after); its best.pth
                   through the --domain_shift CLI reproduces its mIoU.
-10. train-parity- one fp32 train step at 2x3x1024x512 on the card against
+12. train-parity- one fp32 train step at 2x3x1024x512 on the card against
                   the same step on the CPU (TF32 off) and in fp64 on the CPU.
-11. da        -- the port's DA CLI (GTA5 -> Cityscapes) on synthetic 16 +
+13. da        -- the port's DA CLI (GTA5 -> Cityscapes) on synthetic 16 +
                   16 + 4 image trees at 1024x512, batch 8, bf16, 2 epochs of
                   2 steps, once with the FC discriminator and the 4-phase
                   step, once with the DW+BN one and the combined step (the CE
                   kernels' counts reset before and read after each); its
                   GTA5_1.pth through the --domain_shift CLI.
-12. da-parity  -- one fp32 DA step (DW+BN discriminator) at 2x3x1024x512 on
+14. da-parity  -- one fp32 DA step (DW+BN discriminator) at 2x3x1024x512 on
                   the card against the same step on the CPU (TF32 off) and in
                   fp64 on the CPU.
-13. timing     -- CUDA-event times of every kernel and of its plain version,
+15. timing     -- CUDA-event times of every kernel and of its plain version,
                   features + argmax kernel throughput, the bf16 train step at
                   batch 8 with the CE kernel and with its plain version (turns
                   A B B A, peak memory), the bf16 DA step at batch 8, the
@@ -56,7 +71,12 @@
                   torch.profiler passes: device busy share and top kernels.
 
 Every failure raises and ends the run with a non-zero exit. The line
-before the last is the kernels' JSON record; the last line is
+before the last is the kernels' JSON record: each kernel's launches on its
+path, its largest difference from its plain version, its time, its plain
+version's and, where one PyTorch call computes the same function, that
+call's (``library_ms``), beside its bound (``bound_ms``: the larger of its
+bytes over 3.35 TB/s and its operations over their peak rate, from this
+run's shapes; ``bound_by`` says which). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,6 +99,18 @@ CE_REPLACES = "dasemanticsegmentationaml_tpu/ops/pallas/fused_ce.py:303"
 STDC_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/fused_stdc.cu"
 STDC_REPLACES = {1: "dasemanticsegmentationaml_tpu/ops/pallas/fused_stdc.py:326",
                  2: "dasemanticsegmentationaml_tpu/ops/pallas/fused_stdc.py:376"}
+COPY_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/copy_probe.cu"
+COPY_REPLACES = {"copy_block": "tools/probe_pallas_dma.py:34",
+                 "copy_direct": "tools/probe_dma_manual.py:132",
+                 "copy_bounce": "tools/probe_dma_manual.py:132"}
+ROLL_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/tile_roll.cu"
+ROLL_REPLACES = "tools/mosaic_roll_repro.py:30"
+#: the ring depth whose time stands for copy_bounce in the kernels' record
+BOUNCE_SLOTS = 8
+#: an H100 SXM (NVIDIA's data sheet, dense): operations/s by type, fp32
+#: outside the tensor cores, bf16 on them (its device-memory rate is
+#: tools/probe_copy.py::PEAK_BYTES_PER_S)
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16_tensor": 989e12}
 #: the six STDC813 bottlenecks, features[2:8], at batch 8 and 1024x512
 #: (models/stdcnet.py:174-190): stride, input (C, H, W), (h1, h2, h3, h4)
 STDC813_BOTTLENECKS = (
@@ -115,6 +147,19 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def roofline(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``nbytes`` (each input read once, each output written once)
+    and does ``ops`` ({type: operations}, each at its peak rate): the
+    larger of the two times."""
+    from dasemanticsegmentationaml_tpu_torch.tools.probe_copy import (
+        PEAK_BYTES_PER_S)
+
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def logits_on(device, shape, seed, tie_heavy, dtype):
@@ -359,6 +404,175 @@ def phase_stdc_kernel(device):
         f" max |kernel-plain| s1 {max_err[1]:.3e}, s2 {max_err[2]:.3e}; "
         f"launches {launches}")
     return max_err
+
+
+def phase_copy_probe(device, card):
+    """The copy kernels against ``x.clone()``, bit for bit, at the probe's
+    16384x8192 bf16 and at edge sizes (one 16-byte vector, ragged last
+    chunks and tiles, fewer chunks than SMs); then the probe_copy entry
+    point at full size with the counts reset just before and read just
+    after; then the plain version and the two library yardsticks, ``copy_``
+    into a buffer and ``x + 0``, by the probe's protocol. Returns the
+    launches, the probe's times and the others' ms per copy."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+    from dasemanticsegmentationaml_tpu_torch.tools import probe_copy
+
+    def bounce(n_slots):
+        return lambda x, out=None: cp.copy_bounce(x, out, n_slots=n_slots)
+
+    kernels = {"copy_block": cp.copy_block, "copy_direct": cp.copy_direct,
+               "copy_bounce2": bounce(2), "copy_bounce8": bounce(8)}
+
+    def counts():
+        return {"copy_block": cp.BLOCK_LAUNCHES,
+                "copy_direct": cp.DIRECT_LAUNCHES,
+                "copy_bounce2": cp.BOUNCE_LAUNCHES[2],
+                "copy_bounce8": cp.BOUNCE_LAUNCHES[8]}
+
+    full = probe_copy.ROWS * probe_copy.COLS
+    sizes = (full, 8, 8 * 1000 + 8, 3 * 4096 + 24, 4 * 1024 * 1024 + 8)
+    before = counts()
+    max_err = 0.0
+    for n in sizes:
+        x = probe_copy.seeded_buffer(1, n, device, seed=n % 7).view(-1)
+        want = cp.copy_plain(x)
+        for name, fn in kernels.items():
+            out = torch.full_like(x, float("nan"))
+            for got in (fn(x), fn(x, out)):
+                torch.cuda.synchronize()
+                max_err = max(max_err, (got.float() - want.float()).abs()
+                              .max().item())
+                check(torch.equal(got.view(torch.int16),
+                                  want.view(torch.int16)),
+                      f"{name} differs from x.clone() at {n} values")
+        del x, want, out, got
+    rose = {k: v - before[k] for k, v in counts().items()}
+    check(rose == {k: 2 * len(sizes) for k in kernels},
+          f"copy counters rose by {rose}, expected {2 * len(sizes)} each")
+    log("copy-probe", f"{len(kernels)} kernels x {len(sizes)} sizes (bf16, "
+        f"{sizes}) bit-identical to x.clone(), into a new tensor and into "
+        f"out (max |kernel - plain| {max_err}); counters {rose}")
+
+    cp.BLOCK_LAUNCHES = cp.DIRECT_LAUNCHES = 0
+    cp.BOUNCE_LAUNCHES = {n: 0 for n in cp.SLOTS}
+    results = probe_copy.main([])
+    launches = {"copy_block": cp.BLOCK_LAUNCHES,
+                "copy_direct": cp.DIRECT_LAUNCHES,
+                "copy_bounce": cp.BOUNCE_LAUNCHES[BOUNCE_SLOTS],
+                "copy_bounce_by_slots": dict(cp.BOUNCE_LAUNCHES)}
+    log("copy-probe", f"the probe_copy entry point at {probe_copy.ROWS}x"
+        f"{probe_copy.COLS} bf16: launches {launches}")
+    check(all(v > 0 for v in cp.BOUNCE_LAUNCHES.values())
+          and launches["copy_block"] > 0 and launches["copy_direct"] > 0,
+          f"the probe did not launch every kernel: {launches}")
+
+    x = probe_copy.seeded_buffer(probe_copy.ROWS, probe_copy.COLS, device)
+    bufs = [torch.empty_like(x), torch.empty_like(x)]
+    nbytes = x.numel() * x.element_size()
+    others = {}
+    # x + 0 turns the buffer's -0.0 values into +0.0: held value for value
+    for name, fn, bitwise in (
+            ("plain x.clone()", lambda s, d: cp.copy_plain(s), True),
+            ("library copy_", lambda s, d: d.copy_(s), True),
+            ("library x + 0", lambda s, d: torch.add(s, 0, out=d), False)):
+        ms = probe_copy.time_chain(fn, x, bufs,
+                                   bitwise=bitwise) / probe_copy.CHAIN
+        others[name] = ms
+        log("copy-probe", f"{name}: {2 * nbytes / ms / 1e6:.1f} GB/s = "
+            f"{2 * nbytes / ms * 1e3 / probe_copy.PEAK_BYTES_PER_S:.3f} of "
+            f"3.35 TB/s ({ms:.4f} ms per copy, chain of {probe_copy.CHAIN}, best of "
+            f"{probe_copy.REPS}); output "
+            f"{'bit-identical' if bitwise else 'equal in value'} | {card}")
+    bound = roofline(2 * nbytes, {})
+    log("copy-probe", f"bound of one copy: {bound[0]:.4f} ms ({bound[1]})")
+    del x, bufs
+    torch.cuda.empty_cache()
+    return launches, results, others, bound, max_err
+
+
+#: (rows, cols) of the roll's edge cases: rows of fewer vectors than a warp
+#: has lanes, 520 (not a multiple of 32 vectors)
+ROLL_SHAPES = ((8, 128), (1, 64), (8, 64), (1, 128), (1, 256), (8, 256),
+               (3, 520))
+ROLL_SHIFTS = (0, 1, -1, 63, 127, 128, 129, -300)
+
+
+def phase_roll_kernel(device, card):
+    """tile_roll against its plain version (slices + cat) and against
+    ``torch.roll``, bit for bit, in its four dtypes at every edge shape and
+    shift (C - 1, C and C + 1 too); then the roll_repro entry point with
+    the count reset just before and read just after (one launch per
+    dtype); then the kernel, its plain version and ``torch.roll`` (the
+    library yardstick) at 16384x8192 bf16, shift 1, in turns A B B A, and
+    the kernel at (8, 128)."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import tile_roll as tr
+    from dasemanticsegmentationaml_tpu_torch.tools import roll_repro
+
+    before = tr.LAUNCHES
+    calls = 0
+    max_err = 0.0
+    for n, (rows, cols) in enumerate(ROLL_SHAPES):
+        base = np.random.default_rng(n).integers(-3000, 3000, (rows, cols))
+        for dtype in roll_repro.DTYPES:
+            x = torch.from_numpy(base.astype(np.float32)).to(device, dtype)
+            for shift in ROLL_SHIFTS + (cols - 1, cols, cols + 1):
+                got = tr.tile_roll(x, shift)
+                want = tr.tile_roll_plain(x, shift)
+                calls += 1
+                torch.cuda.synchronize()
+                max_err = max(max_err, (got.double() - want.double()).abs()
+                              .max().item())
+                check(torch.equal(got, want)
+                      and torch.equal(got, torch.roll(x, shift, 1)),
+                      f"tile_roll differs from its plain version or "
+                      f"torch.roll at {(rows, cols)} {dtype} shift {shift}")
+    check(tr.LAUNCHES - before == calls,
+          f"LAUNCHES rose by {tr.LAUNCHES - before}, expected {calls}")
+    log("roll-kernel", f"{calls} cases ({len(ROLL_SHAPES)} shapes x fp32, "
+        f"int32, bf16, int16 x {len(ROLL_SHIFTS) + 3} shifts) bit-identical "
+        f"to the plain version and to torch.roll (max |kernel - plain| "
+        f"{max_err}); LAUNCHES +{calls}")
+
+    tr.LAUNCHES = 0
+    roll_repro.main([])
+    launches = tr.LAUNCHES
+    log("roll-kernel", f"the roll_repro entry point at {roll_repro.ROWS}x"
+        f"{roll_repro.COLS}, shift {roll_repro.SHIFT}: launches {launches}")
+    check(launches == len(roll_repro.DTYPES),
+          f"roll_repro launched {launches} times")
+
+    rows, cols = 16384, 8192
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (rows, cols), dtype=np.float32)).to(device, torch.bfloat16)
+    got = tr.tile_roll(x, 1)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int16),
+                      tr.tile_roll_plain(x, 1).view(torch.int16)),
+          "tile_roll differs from its plain version at 16384x8192")
+    fns = {"kernel": lambda: tr.tile_roll(x, 1),
+           "plain": lambda: tr.tile_roll_plain(x, 1),
+           "library": lambda: torch.roll(x, 1, 1)}
+    res = {}
+    for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        res.setdefault(which, []).append(cuda_ms(fns[which], 20))
+    mean = {k: sum(v) / len(v) for k, v in res.items()}
+    nbytes = 2 * x.numel() * x.element_size()
+    bound = roofline(nbytes, {})
+    small = x[:8, :128].contiguous()
+    small_ms = cuda_ms(lambda: tr.tile_roll(small, 1), 200)
+    log("roll-kernel", f"({rows}, {cols}) bf16, shift 1: kernel "
+        f"{mean['kernel']:.4f} ms {res['kernel']} = {nbytes / mean['kernel'] / 1e6:.1f}"
+        f" GB/s, plain {mean['plain']:.4f} ms {res['plain']}, torch.roll "
+        f"{mean['library']:.4f} ms {res['library']}; bound {bound[0]:.4f} ms "
+        f"({bound[1]}); (8, 128): {small_ms:.4f} ms per call, back to back "
+        f"| {card}")
+    del x, got
+    torch.cuda.empty_cache()
+    return launches, mean, bound, max_err
 
 
 def seeded_backbone(device):
@@ -1217,6 +1431,80 @@ def time_train_step(device, card):
     return summary
 
 
+def interp_pass(shape, out_hw):
+    """Elements of the cheaper first pass of a separable align_corners
+    upsample of (B, C, h, w) to ``out_hw``: rows interpolated at (B, C, h,
+    W), or columns at (B, C, H, w). PyTorch's formula h0 * (w0 * a + w1 *
+    b) + h1 * (w0 * c + w1 * d) gives the same bits either way."""
+    b, c, h, w = shape
+    return b * c * min(h * out_hw[1], out_hw[0] * w)
+
+
+def bound_upsample_argmax(shape, out_hw, elem):
+    """Bound of one upsample_argmax call: it reads the (B, C, h, w) logits
+    of ``elem`` bytes and six tap arrays and writes the (B, H, W) int32
+    labels. What the function needs: the first pass of the interpolation
+    (2 multiplies and an add per element, ``interp_pass``), then per output
+    pixel and class the second pass (3) and a compare (fp32)."""
+    b, c, h, w = shape
+    px = b * out_hw[0] * out_hw[1]
+    nbytes = b * c * h * w * elem + 12 * sum(out_hw) + 4 * px
+    return roofline(nbytes, {"fp32": 3 * interp_pass(shape, out_hw)
+                             + 4 * c * px})
+
+
+def bound_ce(shape, out_hw, elem, n_valid, backward):
+    """Bound of one fused CE call on ``n_valid`` labelled pixels (the
+    others add nothing to the loss or the gradient). Both directions read
+    the logits, the int32 labels and the taps; the forward writes the fp32
+    loss, the backward the gradient in the logits' dtype. The first pass of
+    the interpolation costs 3 per element (``interp_pass``); per valid pixel
+    and class the second pass (3) and max, subtract, exp, add (4); per
+    valid pixel log, pick, subtract and sum (5). The backward adds, per
+    valid pixel and class, divide, one-hot, scale (3) and the second pass's
+    adjoint (4), and the first pass's adjoint (4 per element) (fp32)."""
+    b, c, h, w = shape
+    logits = b * c * h * w * elem
+    nbytes = (logits + 4 * b * out_hw[0] * out_hw[1] + 12 * sum(out_hw)
+              + (logits if backward else 4))
+    first = interp_pass(shape, out_hw)
+    ops = 3 * first + n_valid * (7 * c + 5)
+    if backward:
+        ops += n_valid * c * 7 + 4 * first
+    return roofline(nbytes, {"fp32": ops})
+
+
+def bound_cat(stride, in_chw, chans, batch, elem):
+    """Bound of one fused CatBottleneck launch: it reads the input, the
+    folded weights (in ``elem`` bytes) and fp32 biases and writes the
+    concat; the 1x1 and 3x3 convs are matrix products (tensor cores, 2 per
+    multiply-add), while the stride-2 depthwise conv and average pool and
+    every bias and ReLU are fp32."""
+    cin, h, w = in_chw
+    h1, h2, h3, h4 = chans
+    out_px = batch * -(-h // stride) * -(-w // stride)
+    in_px = batch * h * w
+    weights = cin * h1 + 9 * (h1 * h2 + h2 * h3 + h3 * h4)
+    vector = 2 * (in_px * h1 + out_px * (h2 + h3 + h4))
+    if stride == 2:
+        weights += 9 * h1
+        vector += out_px * h1 * (18 + 10 + 1)
+    nbytes = ((in_px * cin + out_px * sum(chans) + weights) * elem
+              + 4 * (sum(chans) + (h1 if stride == 2 else 0)))
+    macs = in_px * cin * h1 + 9 * out_px * (h1 * h2 + h2 * h3 + h3 * h4)
+    return roofline(nbytes, {"bf16_tensor": 2 * macs, "fp32": vector})
+
+
+def kernel_record(name, source, replaces, launches, max_err, ms, plain_ms,
+                  bound, library_ms=None, **extra):
+    """One kernel's entry of the kernels' JSON line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms, **extra}
+
+
 def main():
     import concurrent.futures as futures
 
@@ -1227,10 +1515,13 @@ def main():
               "False); this script runs only on a card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import tile_roll as tr
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
     from dasemanticsegmentationaml_tpu_torch.ops.cuda.build import BUILD_LOGS
+    from dasemanticsegmentationaml_tpu_torch.tools import probe_copy
 
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1242,19 +1533,25 @@ def main():
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    with futures.ThreadPoolExecutor(3) as pool:
-        for job in [pool.submit(lib._library) for lib in (ua, fc, fs)]:
+    libs = (ua, fc, fs, cp, tr)
+    with futures.ThreadPoolExecutor(len(libs)) as pool:
+        for job in [pool.submit(lib._library) for lib in libs]:
             job.result()
-    log("build", f"upsample_argmax.cu, fused_ce.cu and fused_stdc.cu built "
-        f"(in parallel) and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(set-up)")
-    for name in ("upsample_argmax", "fused_ce", "fused_stdc"):
+    sources = ("upsample_argmax", "fused_ce", "fused_stdc", "copy_probe",
+               "tile_roll")
+    log("build", f"{', '.join(f'{n}.cu' for n in sources)} built (in "
+        f"parallel) and loaded in {time.perf_counter() - t0:.2f} s (set-up)")
+    for name in sources:
         for line in BUILD_LOGS.get(name, "").splitlines():
             log("build", f"{name}: {line}")
 
     max_err = phase_kernel(device)
     ce_errs = phase_ce_kernel(device)
     stdc_errs = phase_stdc_kernel(device)
+    (copy_launches, copy_times, copy_others, copy_bound,
+     copy_err) = phase_copy_probe(device, card)
+    roll_launches, roll_times, roll_bound, roll_err = phase_roll_kernel(
+        device, card)
     backbone = seeded_backbone(device)
     stdc_launches, folded, h = phase_stdc_path(device, backbone)
     model = phase_model(device)
@@ -1268,31 +1565,54 @@ def main():
     time_da_step(device, card)
 
     kern, plain = times[((2, 19, 128, 64), "bfloat16")]
-    ce = times["ce"][(CE_MAIN_CASES[0][0], "bfloat16")]
-    # a fused_cat kernel's ms / plain_ms: the sum over the three bottlenecks
-    # of its stride on the path, bf16, batch 8
+    ce_shape, ce_hw = CE_MAIN_CASES[0]
+    ce = times["ce"][(ce_shape, "bfloat16")]
+    labels = ce_labels("cpu", (ce_shape[0], *ce_hw), 0, "mixed")
+    n_valid = int(((labels >= 0) & (labels < ce_shape[1])).sum())
+    # a fused_cat kernel's ms / plain_ms / bound: the sum over the three
+    # bottlenecks of its stride on the path, bf16, batch 8
     stdc_ms = {s: [sum(stdc_times[(f"features[{i + 2}]", "bfloat16")][k]
                        for i, (st, _, _) in enumerate(STDC813_BOTTLENECKS)
                        if st == s) for k in (0, 1)] for s in (1, 2)}
+    stdc_bound = {}
+    for s in (1, 2):
+        parts = [bound_cat(st, chw, chans, 8, 2)
+                 for st, chw, chans in STDC813_BOTTLENECKS if st == s]
+        stdc_bound[s] = (sum(p[0] for p in parts), max(parts)[1])
+    copy_ms = {"copy_block": copy_times["copy_block"],
+               "copy_direct": copy_times["copy_direct"],
+               "copy_bounce": copy_times[probe_copy.bounce_label(
+                   BOUNCE_SLOTS, cp.DEFAULT_CHUNK)]}
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s"
         f" | {card}")
     print(json.dumps({"kernels": [
-        {"name": "upsample_argmax", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": eval_launches,
-         "max_abs_err": max_err, "ms": kern, "plain_ms": plain},
-        {"name": "fused_ce_fwd", "route": "cuda", "source": CE_SOURCE,
-         "replaces": CE_REPLACES, "launches": train_launches["fused_ce_fwd"],
-         "max_abs_err": ce_errs["loss"], "ms": ce[("fwd", "kernel")],
-         "plain_ms": ce[("fwd", "plain")]},
-        {"name": "fused_ce_bwd", "route": "cuda", "source": CE_SOURCE,
-         "replaces": CE_REPLACES, "launches": train_launches["fused_ce_bwd"],
-         "max_abs_err": ce_errs["grad"], "ms": ce[("bwd", "kernel")],
-         "plain_ms": ce[("bwd", "plain")]}] + [
-        {"name": f"fused_cat_s{s}", "route": "cuda", "source": STDC_SOURCE,
-         "replaces": STDC_REPLACES[s],
-         "launches": stdc_launches[f"fused_cat_s{s}"],
-         "max_abs_err": stdc_errs[s], "ms": stdc_ms[s][0],
-         "plain_ms": stdc_ms[s][1]} for s in (1, 2)]}))
+        kernel_record("upsample_argmax", KERNEL_SOURCE, KERNEL_REPLACES,
+                      eval_launches, max_err, kern, plain,
+                      bound_upsample_argmax((2, 19, 128, 64), (1024, 512), 2)),
+        kernel_record("fused_ce_fwd", CE_SOURCE, CE_REPLACES,
+                      train_launches["fused_ce_fwd"], ce_errs["loss"],
+                      ce[("fwd", "kernel")], ce[("fwd", "plain")],
+                      bound_ce(ce_shape, ce_hw, 2, n_valid, False)),
+        kernel_record("fused_ce_bwd", CE_SOURCE, CE_REPLACES,
+                      train_launches["fused_ce_bwd"], ce_errs["grad"],
+                      ce[("bwd", "kernel")], ce[("bwd", "plain")],
+                      bound_ce(ce_shape, ce_hw, 2, n_valid, True))] + [
+        kernel_record(f"fused_cat_s{s}", STDC_SOURCE, STDC_REPLACES[s],
+                      stdc_launches[f"fused_cat_s{s}"], stdc_errs[s],
+                      stdc_ms[s][0], stdc_ms[s][1], stdc_bound[s])
+        for s in (1, 2)] + [
+        kernel_record(name, COPY_SOURCE, COPY_REPLACES[name],
+                      copy_launches[name], copy_err, copy_ms[name],
+                      copy_others["plain x.clone()"], copy_bound,
+                      copy_others["library copy_"],
+                      **({"n_slots": BOUNCE_SLOTS,
+                          "chunk_bytes": cp.DEFAULT_CHUNK}
+                         if name == "copy_bounce" else {}))
+        for name in ("copy_block", "copy_direct", "copy_bounce")] + [
+        kernel_record("tile_roll", ROLL_SOURCE, ROLL_REPLACES, roll_launches,
+                      roll_err, roll_times["kernel"], roll_times["plain"],
+                      roll_bound, roll_times["library"],
+                      shape=[16384, 8192], dtype="bfloat16")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,7 @@ when a module is imported: the first launch builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -77,6 +78,13 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(so_path)
         _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index`` (a persistent grid's
+    size)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def current_stream(device: torch.device) -> int:

@@ -224,3 +224,149 @@ def test_fused_cat_without_a_build_raises(cuda_device, tmp_path, monkeypatch):
                 torch.zeros(1, 16, 8, 8, device=cuda_device), fp)
     finally:
         fs._library.cache_clear()
+
+
+def _bf16_buffer(device, n, seed=0):
+    x = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=torch.bfloat16)
+
+
+#: buffer sizes in bf16 values: one 16-byte vector, a ragged last chunk
+#: and tile, fewer chunks than SMs, and more chunks than SMs
+_COPY_SIZES = [8, 8 * 1000 + 8, 3 * 4096 + 24, 4 * 1024 * 1024 + 8]
+
+
+def _copy_launches():
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+
+    return (cp.BLOCK_LAUNCHES, cp.DIRECT_LAUNCHES, dict(cp.BOUNCE_LAUNCHES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _COPY_SIZES)
+@pytest.mark.parametrize("kernel", ["block", "direct", "bounce2", "bounce8"])
+def test_copy_kernels_equal_plain_version(cuda_device, kernel, n):
+    """Bit-identical to ``x.clone()``, into a new tensor and into ``out``;
+    the kernel's counter rises by the two calls."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+
+    fn = {"block": cp.copy_block, "direct": cp.copy_direct,
+          "bounce2": lambda x, out=None: cp.copy_bounce(x, out, n_slots=2),
+          "bounce8": lambda x, out=None: cp.copy_bounce(x, out, n_slots=8)
+          }[kernel]
+    x = _bf16_buffer(cuda_device, n)
+    out = torch.full_like(x, float("nan"))
+    before = _copy_launches()
+    got = fn(x)
+    into = fn(x, out)
+    torch.cuda.synchronize()
+    after = _copy_launches()
+    want = cp.copy_plain(x)
+    assert into is out
+    for t in (got, into):
+        assert torch.equal(t.view(torch.int16), want.view(torch.int16))
+    rose = {"block": after[0] - before[0], "direct": after[1] - before[1],
+            "bounce2": after[2][2] - before[2][2],
+            "bounce8": after[2][8] - before[2][8]}
+    assert rose == {k: (2 if k == kernel else 0) for k in rose}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots,chunk_kb", [(2, 16), (2, 112), (8, 4),
+                                              (8, 28)])
+def test_copy_bounce_chunk_sweep(cuda_device, n_slots, chunk_kb):
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+
+    x = _bf16_buffer(cuda_device, 3 * 1024 * 1024 + 8, seed=1)
+    got = cp.copy_bounce(x, n_slots=n_slots, chunk_bytes=chunk_kb * 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), x.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_copy_kernels_reject_what_they_do_not_take(cuda_device):
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+
+    x = _bf16_buffer(cuda_device, 64)
+    for fn in (cp.copy_block, cp.copy_direct, cp.copy_bounce):
+        with pytest.raises(ValueError):  # 14 bytes
+            fn(x[:7])
+        with pytest.raises(ValueError):  # 2 bytes off a 16-byte boundary
+            fn(x[1:9])
+        with pytest.raises(ValueError):  # not contiguous
+            fn(x.view(8, 8).t())
+        with pytest.raises(ValueError):  # out overlaps x
+            fn(x[:32], x[8:40])
+        with pytest.raises(ValueError):  # out of another dtype
+            fn(x, torch.empty(64, device=cuda_device))
+        with pytest.raises(TypeError):
+            fn(torch.zeros(16, dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError):  # no such ring
+        cp.copy_bounce(x, n_slots=4)
+    with pytest.raises(ValueError):  # the ring does not fit 227 KB
+        cp.copy_bounce(x, n_slots=8, chunk_bytes=32 * 1024)
+
+
+@pytest.mark.cuda
+def test_copy_without_a_build_raises(cuda_device, tmp_path, monkeypatch):
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import build
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "_LIBS", {})
+    cp._library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cp.copy_bounce(_bf16_buffer(cuda_device, 64))
+    finally:
+        cp._library.cache_clear()
+
+
+_ROLL_SHIFTS = [0, 1, -1, 2, 3, 7, 63, 127, 128, 129, -300]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
+                                   torch.bfloat16, torch.int16])
+@pytest.mark.parametrize("rows,cols", [(8, 128), (1, 64), (8, 256),
+                                       (3, 520), (5, 8)])
+def test_tile_roll_equals_plain_version(cuda_device, rows, cols, dtype):
+    """Bit-identical to the slices + cat version at every shift, C - 1, C
+    and C + 1 included; one launch per call. 520 is no multiple of 32
+    vectors; rows of 8 values are one or two vectors."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import tile_roll as tr
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        -3000, 3000, (rows, cols)).astype(np.float32)).to(cuda_device, dtype)
+    shifts = _ROLL_SHIFTS + [cols - 1, cols, cols + 1]
+    before = tr.LAUNCHES
+    for shift in shifts:
+        got = tr.tile_roll(x, shift)
+        want = tr.tile_roll_plain(x, shift)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == x.shape
+        assert torch.equal(got, want), shift
+    assert tr.LAUNCHES == before + len(shifts)
+
+
+@pytest.mark.cuda
+def test_tile_roll_rejects_what_it_does_not_take(cuda_device):
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import tile_roll as tr
+
+    with pytest.raises(ValueError):  # 14-byte rows
+        tr.tile_roll(torch.zeros(2, 7, dtype=torch.bfloat16,
+                                 device=cuda_device), 1)
+    with pytest.raises(ValueError):  # 148-byte rows of a 32-bit type
+        tr.tile_roll(torch.zeros(3, 37, device=cuda_device), 1)
+    with pytest.raises(ValueError):  # 2 bytes off a 16-byte boundary
+        tr.tile_roll(torch.zeros(33, dtype=torch.int16,
+                                 device=cuda_device)[1:].view(2, 16), 1)
+    with pytest.raises(ValueError):  # 4 bytes off a 16-byte boundary
+        tr.tile_roll(torch.zeros(36, device=cuda_device)[1:33].view(2, 16), 1)
+    with pytest.raises(TypeError):
+        tr.tile_roll(torch.zeros(2, 8, dtype=torch.float64,
+                                 device=cuda_device), 1)
+    with pytest.raises(ValueError):
+        tr.tile_roll(torch.zeros(2, 8, 8, device=cuda_device), 1)

@@ -33,9 +33,11 @@ def test_port_imports_no_jax():
         [PKG], prefix="dasemanticsegmentationaml_tpu_torch."))
     assert {f"dasemanticsegmentationaml_tpu_torch.{m}" for m in (
         "cli", "ops.losses", "ops.schedules", "ops.cuda.fused_ce",
-        "ops.cuda.fused_stdc", "ops.norm", "models.discriminator",
-        "train.adversarial", "train.optim", "train.supervised",
-        "utils.checkpoint", "utils.logging_util", "utils.tb_writer")
+        "ops.cuda.fused_stdc", "ops.cuda.copy_probe", "ops.cuda.tile_roll",
+        "ops.norm", "models.discriminator", "tools", "tools.probe_copy",
+        "tools.roll_repro", "train.adversarial", "train.optim",
+        "train.supervised", "utils.checkpoint", "utils.logging_util",
+        "utils.tb_writer")
     } <= set(modules)
     code = (
         "import importlib, sys\n"
