@@ -22,13 +22,19 @@
                   against their plain PyTorch version on folded weights, at
                   the six STDC813 bottleneck shapes at batch 8, 1024x512 and
                   at edge shapes, in fp32 and bf16; two runs bit-identical.
-6. copy-probe  -- the three copy kernels (copy_block, copy_direct and the TMA
-                  ring copy_bounce at 2 and 8 slots) against x.clone(), bit
-                  for bit, at 16384x8192 bf16 and at edge sizes; then their
+6. copy-probe  -- every variant of the probe's sweep of the three copy
+                  kernels (copy_block, copy_direct, and the TMA ring
+                  copy_bounce at 2 and 8 slots over every split between
+                  loads ahead and stores unread) against x.clone(), bit for
+                  bit, at 16384x8192 bf16 and at edge sizes; then their
                   path, the probe_copy entry point at 16384x8192 bf16 (the
                   counts reset before and read after), and copy_ and x + 0
                   (the library yardsticks) and x.clone() by the probe's own
-                  protocol, with GB/s and the share of 3.35 TB/s.
+                  protocol, with GB/s and the share of 3.35 TB/s; then each
+                  kernel at its defaults against copy_ in turns A B B A, by
+                  the probe's protocol and as CUDA-graph replays of the same
+                  chain (device only), with the verdict "slower than copy_"
+                  or not.
 7. roll-kernel -- tile_roll against its plain version (slices + cat) and
                   torch.roll, bit for bit, in fp32, int32, bf16 and int16
                   at (8, 128) and at edge shapes and shifts; then its
@@ -406,53 +412,125 @@ def phase_stdc_kernel(device):
     return max_err
 
 
+def copy_counts():
+    """The copy kernels' launch counters, copy_bounce by ring depth."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+
+    return {"copy_block": cp.BLOCK_LAUNCHES, "copy_direct": cp.DIRECT_LAUNCHES,
+            **{f"copy_bounce n_slots={n}": cp.BOUNCE_LAUNCHES[n]
+               for n in cp.SLOTS}}
+
+
+def copy_against_library(fns, x, bufs, card):
+    """Each copy kernel of ``fns`` against ``copy_`` in turns A B B A
+    (kernel, copy_, copy_, kernel), each turn timed by the probe's chain
+    protocol (``time_chain``: the wrappers' host path included) and as a
+    replay of the same chain captured once in a CUDA graph (``time_graph``:
+    device only). The kernel is slower than ``copy_`` if its mean graph
+    time exceeds ``copy_``'s by more than the turns' spread (the larger
+    difference between a side's two turns, relative). Returns, per kernel,
+    the mean graph-replay ms per copy of the kernel and of ``copy_`` and
+    the four turns of each protocol."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.tools import probe_copy
+
+    chain = probe_copy.CHAIN
+
+    def library(s, d):
+        return d.copy_(s)
+
+    fns = {**fns, "copy_": library}
+    graphs = {name: probe_copy.chain_graph(fn, x, bufs)
+              for name, fn in fns.items()}
+    out = {}
+    for name in graphs:
+        if name == "copy_":
+            continue
+        turns = {"chain": [], "graph": []}
+        for which in (name, "copy_", "copy_", name):
+            turns["chain"].append(probe_copy.time_chain(fns[which], x, bufs)
+                                  / chain)
+            turns["graph"].append(probe_copy.time_graph(graphs[which])
+                                  / chain)
+        mean = {p: ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+                for p, t in turns.items()}
+        g = turns["graph"]
+        spread = max(abs(g[0] - g[3]) / mean["graph"][0],
+                     abs(g[1] - g[2]) / mean["graph"][1])
+        ratio = mean["graph"][0] / mean["graph"][1]
+        verdict = ("slower than copy_" if ratio - 1 > spread
+                   else "not slower than copy_")
+        log("copy-probe", f"{name} against copy_, turns A B B A, ms per copy:"
+            f" chain {[round(t, 4) for t in turns['chain']]}, graph replay "
+            f"{[round(t, 4) for t in g]}; graph ratio {ratio:.4f}, spread "
+            f"{spread:.4f}: {verdict}; chain ratio "
+            f"{mean['chain'][0] / mean['chain'][1]:.4f}; the host path costs"
+            f" {mean['chain'][0] - mean['graph'][0]:.4f} ms per copy in the "
+            f"chain ({mean['chain'][1] - mean['graph'][1]:.4f} for copy_) | "
+            f"{card}")
+        out[name] = {"graph_ms": mean["graph"][0],
+                     "library_graph_ms": mean["graph"][1],
+                     "abba_chain_ms": turns["chain"],
+                     "abba_graph_ms": turns["graph"]}
+    del graphs
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_copy_probe(device, card):
-    """The copy kernels against ``x.clone()``, bit for bit, at the probe's
-    16384x8192 bf16 and at edge sizes (one 16-byte vector, ragged last
-    chunks and tiles, fewer chunks than SMs); then the probe_copy entry
-    point at full size with the counts reset just before and read just
-    after; then the plain version and the two library yardsticks, ``copy_``
-    into a buffer and ``x + 0``, by the probe's protocol. Returns the
-    launches, the probe's times and the others' ms per copy."""
+    """Every variant of the probe's sweep (copy_block; copy_direct at each
+    span length; copy_bounce at every ring: depth, stores left unread,
+    chunk, blocks per SM, static or dynamic) against ``x.clone()``, bit for
+    bit, into a new tensor and into ``out``, at the probe's 16384x8192 bf16
+    and at edge sizes (one 16-byte vector, ragged last chunks and tiles,
+    fewer tiles and chunks than blocks, uneven spans with a ragged tail);
+    then the probe_copy entry point at full size with the counts reset just
+    before and read just after; then the plain version and the two library
+    yardsticks, ``copy_`` into a buffer and ``x + 0``, by the probe's
+    protocol; then the three kernels at their defaults against ``copy_`` in
+    turns A B B A, by the probe's protocol and as CUDA-graph replays.
+    Returns the launches, the probe's times, the others' ms per copy, the
+    bound, the largest error and the turns against ``copy_``."""
+    import functools
+
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
     from dasemanticsegmentationaml_tpu_torch.tools import probe_copy
 
-    def bounce(n_slots):
-        return lambda x, out=None: cp.copy_bounce(x, out, n_slots=n_slots)
-
-    kernels = {"copy_block": cp.copy_block, "copy_direct": cp.copy_direct,
-               "copy_bounce2": bounce(2), "copy_bounce8": bounce(8)}
-
-    def counts():
-        return {"copy_block": cp.BLOCK_LAUNCHES,
-                "copy_direct": cp.DIRECT_LAUNCHES,
-                "copy_bounce2": cp.BOUNCE_LAUNCHES[2],
-                "copy_bounce8": cp.BOUNCE_LAUNCHES[8]}
-
+    variants = probe_copy.variants()
+    counter = {label: next(k for k in copy_counts() if label.startswith(k))
+               for label, _ in variants}
     full = probe_copy.ROWS * probe_copy.COLS
-    sizes = (full, 8, 8 * 1000 + 8, 3 * 4096 + 24, 4 * 1024 * 1024 + 8)
-    before = counts()
+    # copy_direct's uneven spans with a ragged last tile: 1786 whole tiles
+    # and 77 vectors
+    uneven = 8 * (cp.DIRECT_TILE * 1786 + 77)
+    sizes = (full, 8, 8 * 1000 + 8, 3 * 4096 + 24, 4 * 1024 * 1024 + 8,
+             uneven)
+    before = copy_counts()
     max_err = 0.0
     for n in sizes:
         x = probe_copy.seeded_buffer(1, n, device, seed=n % 7).view(-1)
         want = cp.copy_plain(x)
-        for name, fn in kernels.items():
-            out = torch.full_like(x, float("nan"))
-            for got in (fn(x), fn(x, out)):
+        out = torch.empty_like(x)
+        for label, fn in variants:
+            out.fill_(float("nan"))
+            for got in (fn(x, None), fn(x, out)):
                 torch.cuda.synchronize()
                 max_err = max(max_err, (got.float() - want.float()).abs()
                               .max().item())
                 check(torch.equal(got.view(torch.int16),
                                   want.view(torch.int16)),
-                      f"{name} differs from x.clone() at {n} values")
+                      f"{label} differs from x.clone() at {n} values")
         del x, want, out, got
-    rose = {k: v - before[k] for k, v in counts().items()}
-    check(rose == {k: 2 * len(sizes) for k in kernels},
-          f"copy counters rose by {rose}, expected {2 * len(sizes)} each")
-    log("copy-probe", f"{len(kernels)} kernels x {len(sizes)} sizes (bf16, "
-        f"{sizes}) bit-identical to x.clone(), into a new tensor and into "
+    rose = {k: v - before[k] for k, v in copy_counts().items()}
+    expected = {k: 2 * len(sizes) * list(counter.values()).count(k)
+                for k in before}
+    check(rose == expected,
+          f"copy counters rose by {rose}, expected {expected}")
+    log("copy-probe", f"{len(variants)} variants x {len(sizes)} sizes (bf16,"
+        f" {sizes}) bit-identical to x.clone(), into a new tensor and into "
         f"out (max |kernel - plain| {max_err}); counters {rose}")
 
     cp.BLOCK_LAUNCHES = cp.DIRECT_LAUNCHES = 0
@@ -487,9 +565,14 @@ def phase_copy_probe(device, card):
             f"{'bit-identical' if bitwise else 'equal in value'} | {card}")
     bound = roofline(2 * nbytes, {})
     log("copy-probe", f"bound of one copy: {bound[0]:.4f} ms ({bound[1]})")
+    turns = copy_against_library(
+        {"copy_block": cp.copy_block, "copy_direct": cp.copy_direct,
+         "copy_bounce": functools.partial(cp.copy_bounce,
+                                          n_slots=BOUNCE_SLOTS)},
+        x, bufs, card)
     del x, bufs
     torch.cuda.empty_cache()
-    return launches, results, others, bound, max_err
+    return launches, results, others, bound, max_err, turns
 
 
 #: (rows, cols) of the roll's edge cases: rows of fewer vectors than a warp
@@ -1548,8 +1631,8 @@ def main():
     max_err = phase_kernel(device)
     ce_errs = phase_ce_kernel(device)
     stdc_errs = phase_stdc_kernel(device)
-    (copy_launches, copy_times, copy_others, copy_bound,
-     copy_err) = phase_copy_probe(device, card)
+    (copy_launches, copy_times, copy_others, copy_bound, copy_err,
+     copy_turns) = phase_copy_probe(device, card)
     roll_launches, roll_times, roll_bound, roll_err = phase_roll_kernel(
         device, card)
     backbone = seeded_backbone(device)
@@ -1579,10 +1662,15 @@ def main():
         parts = [bound_cat(st, chw, chans, 8, 2)
                  for st, chw, chans in STDC813_BOTTLENECKS if st == s]
         stdc_bound[s] = (sum(p[0] for p in parts), max(parts)[1])
-    copy_ms = {"copy_block": copy_times["copy_block"],
-               "copy_direct": copy_times["copy_direct"],
+    copy_ms = {"copy_block": copy_times["copy_block"]["chain"],
+               "copy_direct": copy_times[probe_copy.direct_label()]["chain"],
                "copy_bounce": copy_times[probe_copy.bounce_label(
-                   BOUNCE_SLOTS, cp.DEFAULT_CHUNK)]}
+                   BOUNCE_SLOTS)]["chain"]}
+    copy_extra = {
+        "copy_block": {},
+        "copy_direct": {"tiles_per_block": cp.DIRECT_TILES_PER_BLOCK},
+        "copy_bounce": {"n_slots": BOUNCE_SLOTS,
+                        **cp.BOUNCE_DEFAULTS[BOUNCE_SLOTS]._asdict()}}
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s"
         f" | {card}")
     print(json.dumps({"kernels": [
@@ -1604,10 +1692,8 @@ def main():
         kernel_record(name, COPY_SOURCE, COPY_REPLACES[name],
                       copy_launches[name], copy_err, copy_ms[name],
                       copy_others["plain x.clone()"], copy_bound,
-                      copy_others["library copy_"],
-                      **({"n_slots": BOUNCE_SLOTS,
-                          "chunk_bytes": cp.DEFAULT_CHUNK}
-                         if name == "copy_bounce" else {}))
+                      copy_others["library copy_"], **copy_turns[name],
+                      **copy_extra[name])
         for name in ("copy_block", "copy_direct", "copy_bounce")] + [
         kernel_record("tile_roll", ROLL_SOURCE, ROLL_REPLACES, roll_launches,
                       roll_err, roll_times["kernel"], roll_times["plain"],

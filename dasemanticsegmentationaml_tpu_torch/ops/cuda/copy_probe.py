@@ -9,6 +9,17 @@ HBM->VMEM->HBM ring) becomes ``copy_bounce``, a TMA bulk-copy ring through
 shared memory. The kernels are in ``csrc/copy_probe.cu`` (design and bound
 are noted there); ``tools/probe_copy.py`` times them.
 
+``copy_direct`` copies whole tiles of ``DIRECT_TILE`` 16-byte vectors (8
+per thread of a 128-thread block), one contiguous span per block, a block
+of more than one tile software-pipelined; ``direct_geometry`` splits the
+tiles evenly over a grid sized from the work. ``copy_bounce`` splits its
+ring of ``n_slots`` slots between loads ahead and ``stores`` left reading
+their slots, and claims its chunks from a global counter as slots free up
+(``Ring``). Each is bound by bytes: a copy of N bytes moves 2 N bytes,
+0.160 ms for 256 MB at 3.35 TB/s. The defaults (``DIRECT_*``,
+``BOUNCE_DEFAULTS``) are the fastest of ``tools/probe_copy.py``'s sweep on
+an H100 by graph replay (PERF.md §6).
+
 On a CUDA tensor each wrapper launches its kernel; a failed build, load or
 launch raises. On a CPU tensor it runs the plain version, ``copy_plain``
 (``x.clone()``). Both devices take the same inputs: a contiguous bf16
@@ -21,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,11 +47,18 @@ BOUNCE_LAUNCHES: Dict[int, int] = {2: 0, 8: 0}
 
 #: the ring depths ``copy_bounce`` is built for (the TPU probe's two)
 SLOTS = (2, 8)
-#: chunk bytes when none is given (the probe's sweep found no better size
-#: for either depth on an H100)
-DEFAULT_CHUNK = 16 * 1024
-#: dynamic shared memory one block may take on an H100 (227 KB)
-SMEM_LIMIT = 232_448
+#: 16-byte vectors of one ``copy_direct`` tile: 8 per thread of a
+#: 128-thread block (csrc kDirectTile)
+DIRECT_TILE = 8 * 128
+#: ``copy_direct``'s blocks resident per SM (its 128 threads take up to 85
+#: registers each, so six fit)
+DIRECT_RESIDENT = 6
+#: ``copy_direct``'s tiles per block when none is given (0: a persistent
+#: grid of the resident blocks)
+DIRECT_TILES_PER_BLOCK = 1
+#: shared memory of one SM on an H100 (228 KB), of which each resident
+#: block leaves 1 KB to the system; one block may take 227 KB
+SM_SMEM = 233_472
 #: bytes in front of the ring that hold its mbarriers (csrc kRingOffset)
 RING_OFFSET = 128
 #: an mbarrier's transaction count stays under 2^20 bytes
@@ -48,6 +66,25 @@ _MAX_TX = 2**20 - 1
 ALIGN = 16
 #: the probe's buffer is bf16 (the kernels move bytes and never look at them)
 DTYPES = (torch.bfloat16,)
+
+
+class Ring(NamedTuple):
+    """How ``copy_bounce`` runs a ring of a given depth."""
+
+    #: stores left reading their slots while the others fill (1 .. depth - 1)
+    stores: int
+    #: bytes of one slot
+    chunk_bytes: int
+    #: issuing blocks per SM
+    blocks_per_sm: int
+    #: chunks claimed from a global counter as slots free up, instead of a
+    #: static split over the blocks
+    dynamic: bool
+
+
+#: each depth's ring when no option is given
+BOUNCE_DEFAULTS: Dict[int, Ring] = {2: Ring(1, 32 * 1024, 1, True),
+                                    8: Ring(7, 8 * 1024, 2, True)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,11 +95,24 @@ _L = ctypes.c_longlong
 def _library() -> ctypes.CDLL:
     lib = load_library("copy_probe")
     for fn, argtypes in ((lib.copy_block, [_P, _P, _L, _P]),
-                         (lib.copy_direct, [_P, _P, _L, _I, _P]),
-                         (lib.copy_bounce, [_P, _P, _L, _I, _I, _I, _P])):
+                         (lib.copy_direct, [_P, _P, _L, _I, _L, _I, _P]),
+                         (lib.copy_bounce,
+                          [_P, _P, _L, _I, _I, _I, _I, _P, _P])):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_CLAIMS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _claims(device: torch.device) -> torch.Tensor:
+    """The dynamic ring's two counters on ``device``, zeroed once; each
+    launch leaves them zeroed, and launches on one device run one at a
+    time (one stream)."""
+    if device not in _CLAIMS:
+        _CLAIMS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _CLAIMS[device]
 
 
 def copy_plain(x: torch.Tensor,
@@ -122,47 +172,109 @@ def copy_block(x: torch.Tensor,
     return dst
 
 
-def copy_direct(x: torch.Tensor,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Copy ``x`` (into ``out``) with a persistent grid whose threads keep
-    8 independent 16-byte loads in flight."""
+class DirectGeometry(NamedTuple):
+    """``copy_direct``'s launch: ``grid`` blocks; block b copies the span
+    of tiles [b * base + min(b, extra), + base + (b < extra)), the buffer's
+    last tile cut at its end."""
+
+    n16: int
+    grid: int
+    base: int
+    extra: int
+
+    def spans(self) -> List[Tuple[int, int]]:
+        """Each block's [start, stop) in 16-byte vectors."""
+        out = []
+        for b in range(self.grid):
+            first = b * self.base + min(b, self.extra)
+            stop = first + self.base + (b < self.extra)
+            out.append((first * DIRECT_TILE,
+                        min(stop * DIRECT_TILE, self.n16)))
+        return out
+
+
+def direct_geometry(n16: int, sms: int,
+                    tiles_per_block: int = DIRECT_TILES_PER_BLOCK
+                    ) -> DirectGeometry:
+    """Split ``n16`` 16-byte vectors into whole tiles over a grid sized
+    from the work: about ``tiles_per_block`` tiles a block, but never fewer
+    blocks than the card holds at once (``sms * DIRECT_RESIDENT``, or the
+    tiles if fewer); ``tiles_per_block`` 0 is a persistent grid of exactly
+    the resident blocks. As even as whole tiles allow: no block copies more
+    than one tile more than another."""
+    tiles = -(-n16 // DIRECT_TILE)
+    resident = min(tiles, sms * DIRECT_RESIDENT)
+    grid = (max(-(-tiles // tiles_per_block), resident) if tiles_per_block
+            else resident)
+    if grid == 0:
+        return DirectGeometry(n16, 0, 0, 0)
+    return DirectGeometry(n16, grid, *divmod(tiles, grid))
+
+
+def copy_direct(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                tiles_per_block: int = DIRECT_TILES_PER_BLOCK
+                ) -> torch.Tensor:
+    """Copy ``x`` (into ``out``) in whole tiles, ``tiles_per_block`` to a
+    block (``direct_geometry``); each thread issues the next tile's 8
+    16-byte loads before it stores this tile's."""
     global DIRECT_LAUNCHES
+    if tiles_per_block < 0:
+        raise ValueError(f"tiles_per_block must be >= 0, got "
+                         f"{tiles_per_block}")
     dst = _checked(x, out)
     if x.device.type == "cpu":
         return copy_plain(x, out)
+    geo = direct_geometry(_nbytes(x) // ALIGN, sm_count(x.device.index or 0),
+                          tiles_per_block)
     check_launch(_library().copy_direct(
-        x.data_ptr(), dst.data_ptr(), _nbytes(x) // ALIGN,
-        sm_count(x.device.index or 0), current_stream(x.device)),
-        "copy_direct")
+        x.data_ptr(), dst.data_ptr(), geo.n16, geo.grid, geo.base, geo.extra,
+        current_stream(x.device)), "copy_direct")
     DIRECT_LAUNCHES += 1
     return dst
 
 
-def ring_fits(n_slots: int, chunk_bytes: int) -> bool:
+def ring_fits(n_slots: int, chunk_bytes: int, stores: int = 1,
+              blocks_per_sm: int = 1) -> bool:
     """Whether ``copy_bounce`` takes this ring: 2 or 8 slots of a positive
-    multiple of 16 bytes under an mbarrier's 2^20, in 227 KB with the
-    barriers."""
-    return (n_slots in SLOTS and 0 < chunk_bytes <= _MAX_TX
-            and chunk_bytes % ALIGN == 0
-            and RING_OFFSET + n_slots * chunk_bytes <= SMEM_LIMIT)
+    multiple of 16 bytes under an mbarrier's 2^20, 1 .. n_slots - 1 stores
+    left unread, and ``blocks_per_sm`` (1 or 2) rings with their barriers
+    in one SM's shared memory."""
+    return (n_slots in SLOTS and 1 <= stores < n_slots
+            and blocks_per_sm in (1, 2)
+            and 0 < chunk_bytes <= _MAX_TX and chunk_bytes % ALIGN == 0
+            and RING_OFFSET + n_slots * chunk_bytes
+            <= SM_SMEM // blocks_per_sm - 1024)
 
 
 def copy_bounce(x: torch.Tensor, out: Optional[torch.Tensor] = None,
-                n_slots: int = 8,
-                chunk_bytes: int = DEFAULT_CHUNK) -> torch.Tensor:
+                n_slots: int = 8, chunk_bytes: Optional[int] = None,
+                stores: Optional[int] = None,
+                blocks_per_sm: Optional[int] = None,
+                dynamic: Optional[bool] = None) -> torch.Tensor:
     """Copy ``x`` (into ``out``) through an ``n_slots``-deep ring of
-    ``chunk_bytes`` chunks in shared memory with TMA bulk copies, one
-    block per SM."""
-    if not ring_fits(n_slots, chunk_bytes):
-        raise ValueError(f"no ring of {n_slots} slots of {chunk_bytes} bytes:"
-                         f" {SLOTS} slots, chunks a multiple of {ALIGN} and "
-                         f"RING_OFFSET + n_slots * chunk <= {SMEM_LIMIT}")
+    ``chunk_bytes`` chunks in shared memory with TMA bulk copies, leaving up
+    to ``stores`` stores reading their slots while the others fill, with
+    ``blocks_per_sm`` issuing blocks per SM (``Ring`` has the options). An
+    option left None takes the depth's ``BOUNCE_DEFAULTS``."""
+    given = {"stores": stores, "chunk_bytes": chunk_bytes,
+             "blocks_per_sm": blocks_per_sm, "dynamic": dynamic}
+    ring = BOUNCE_DEFAULTS.get(n_slots, BOUNCE_DEFAULTS[8])._replace(
+        **{k: v for k, v in given.items() if v is not None})
+    if not ring_fits(n_slots, ring.chunk_bytes, ring.stores,
+                     ring.blocks_per_sm):
+        raise ValueError(f"no ring of {n_slots} slots of {ring.chunk_bytes} "
+                         f"bytes, {ring.stores} stores unread, "
+                         f"{ring.blocks_per_sm} per SM: {SLOTS} slots, "
+                         f"1 .. n_slots - 1 stores, chunks a multiple of "
+                         f"{ALIGN}, 1 or 2 rings per SM within {SM_SMEM} "
+                         f"bytes (1 KB each left to the system)")
     dst = _checked(x, out)
     if x.device.type == "cpu":
         return copy_plain(x, out)
     check_launch(_library().copy_bounce(
-        x.data_ptr(), dst.data_ptr(), _nbytes(x), n_slots, chunk_bytes,
-        sm_count(x.device.index or 0), current_stream(x.device)),
-        "copy_bounce")
+        x.data_ptr(), dst.data_ptr(), _nbytes(x), n_slots, ring.stores,
+        ring.chunk_bytes, sm_count(x.device.index or 0) * ring.blocks_per_sm,
+        _claims(x.device).data_ptr() if ring.dynamic else None,
+        current_stream(x.device)), "copy_bounce")
     BOUNCE_LAUNCHES[n_slots] += 1
     return dst

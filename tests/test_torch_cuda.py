@@ -232,8 +232,11 @@ def _bf16_buffer(device, n, seed=0):
 
 
 #: buffer sizes in bf16 values: one 16-byte vector, a ragged last chunk
-#: and tile, fewer chunks than SMs, and more chunks than SMs
-_COPY_SIZES = [8, 8 * 1000 + 8, 3 * 4096 + 24, 4 * 1024 * 1024 + 8]
+#: and tile, fewer chunks than SMs, more chunks than SMs, and copy_direct's
+#: uneven spans (more tiles than its grid, not a multiple of it) with a
+#: ragged last tile (1786 and 4014 whole tiles of 1024 vectors)
+_COPY_SIZES = [8, 8 * 1000 + 8, 3 * 4096 + 24, 4 * 1024 * 1024 + 8,
+               8 * (1024 * 1786 + 77), 8 * (1024 * 4014 + 1023)]
 
 
 def _copy_launches():
@@ -272,15 +275,49 @@ def test_copy_kernels_equal_plain_version(cuda_device, kernel, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_slots,chunk_kb", [(2, 16), (2, 112), (8, 4),
-                                              (8, 28)])
-def test_copy_bounce_chunk_sweep(cuda_device, n_slots, chunk_kb):
+@pytest.mark.parametrize("n_slots,stores", [(2, 1)] + [(8, s)
+                                                       for s in range(1, 8)])
+def test_copy_bounce_chunk_sweep(cuda_device, n_slots, stores):
+    """Every ring of the probe's sweep with this split (each chunk, 1 and 2
+    blocks per SM, static and dynamic), bit-identical
+    to ``x.clone()`` into a new tensor and into ``out``: at a ragged last
+    chunk and at fewer chunks than blocks."""
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+    from dasemanticsegmentationaml_tpu_torch.tools import probe_copy
 
-    x = _bf16_buffer(cuda_device, 3 * 1024 * 1024 + 8, seed=1)
-    got = cp.copy_bounce(x, n_slots=n_slots, chunk_bytes=chunk_kb * 1024)
-    torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int16), x.view(torch.int16))
+    rings = [r for r in probe_copy.rings(n_slots) if r.stores == stores]
+    assert rings
+    for n in (3 * 1024 * 1024 + 8, 8 * 1000 + 8):
+        x = _bf16_buffer(cuda_device, n, seed=1)
+        out = torch.empty_like(x)
+        for ring in rings:
+            out.fill_(float("nan"))
+            got = cp.copy_bounce(x, n_slots=n_slots, **ring._asdict())
+            into = cp.copy_bounce(x, out, n_slots=n_slots, **ring._asdict())
+            torch.cuda.synchronize()
+            for t in (got, into):
+                assert torch.equal(t.view(torch.int16), x.view(torch.int16)), \
+                    (n, ring)
+            # each dynamic launch leaves its counters zeroed for the next
+            assert not cp._claims(x.device).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _COPY_SIZES)
+def test_copy_direct_variants(cuda_device, n):
+    """copy_direct at every span length the probe sweeps (pipelined when
+    a block has more than one tile), bit-identical to ``x.clone()``."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
+    from dasemanticsegmentationaml_tpu_torch.tools import probe_copy
+
+    x = _bf16_buffer(cuda_device, n, seed=2)
+    out = torch.empty_like(x)
+    for tiles_per_block in probe_copy.DIRECT_TILES + (3, 8):
+        out.fill_(float("nan"))
+        cp.copy_direct(x, out, tiles_per_block=tiles_per_block)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), x.view(torch.int16)), \
+            tiles_per_block
 
 
 @pytest.mark.cuda

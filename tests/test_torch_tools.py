@@ -180,8 +180,70 @@ def test_copy_wrappers_reject_what_the_kernels_do_not_take():
     assert not cp.ring_fits(8, 32 * 1024)    # over 227 KB with the barriers
     assert not cp.ring_fits(2, 1000)         # not a multiple of 16 bytes
     assert cp.ring_fits(2, 112 * 1024) and cp.ring_fits(8, 28 * 1024)
+    # stores left unread: 1 .. n_slots - 1
+    assert not cp.ring_fits(8, 16 * 1024, stores=0)
+    assert not cp.ring_fits(8, 16 * 1024, stores=8)
+    assert not cp.ring_fits(2, 16 * 1024, stores=2)
+    assert cp.ring_fits(8, 16 * 1024, stores=7)
+    # two rings and their system share in one SM's 228 KB
+    assert not cp.ring_fits(8, 16 * 1024, blocks_per_sm=2)
+    assert not cp.ring_fits(2, 112 * 1024, blocks_per_sm=2)
+    assert cp.ring_fits(8, 12 * 1024, 7, 2) and cp.ring_fits(2, 56 * 1024, 1, 2)
+    assert not cp.ring_fits(2, 16 * 1024, blocks_per_sm=3)
     with pytest.raises(ValueError):
         cp.copy_bounce(x, n_slots=4)
+    with pytest.raises(ValueError):
+        cp.copy_bounce(x, n_slots=2, stores=2)
+    with pytest.raises(ValueError):
+        cp.copy_bounce(x, n_slots=8, chunk_bytes=16 * 1024, blocks_per_sm=2)
+    with pytest.raises(ValueError):
+        cp.copy_direct(x, tiles_per_block=-1)
+    # every ring the probe sweeps is taken, and each depth's default
+    for n_slots in cp.SLOTS:
+        for ring in [cp.BOUNCE_DEFAULTS[n_slots], *probe_copy.rings(n_slots)]:
+            assert cp.ring_fits(n_slots, ring.chunk_bytes, ring.stores,
+                                ring.blocks_per_sm)
+        assert ({r.stores for r in probe_copy.rings(n_slots)}
+                == set(range(1, n_slots)))
+
+
+#: 16-byte vectors: one, fewer than a tile, whole tiles and a ragged tail,
+#: and the probe's 256 MB
+_GEOMETRY_SIZES = [1, 1000, 5 * cp.DIRECT_TILE + 17,
+                   16384 * 8192 * 2 // 16]
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("n16", _GEOMETRY_SIZES)
+def test_direct_geometry_covers_every_vector_once(n16, sms):
+    """copy_direct's split, at every span length the probe sweeps:
+    contiguous spans of whole tiles (the last cut at the end), in block
+    order, covering every vector exactly once, no block more than one tile
+    above another, and a grid of about ``tiles_per_block`` tiles a block but
+    at least the resident blocks (or every tile), or exactly those."""
+    tiles = -(-n16 // cp.DIRECT_TILE)
+    resident = min(tiles, sms * cp.DIRECT_RESIDENT)
+    for tiles_per_block in probe_copy.DIRECT_TILES + (3, 8):
+        geo = cp.direct_geometry(n16, sms, tiles_per_block)
+        if tiles_per_block:
+            assert geo.grid == max(-(-tiles // tiles_per_block), resident)
+        else:
+            assert geo.grid == resident
+        spans = geo.spans()
+        assert len(spans) == geo.grid
+        covered = np.zeros(n16, np.int32)
+        for start, stop in spans:
+            assert start % cp.DIRECT_TILE == 0 and start < stop
+            covered[start:stop] += 1
+        assert (covered == 1).all()
+        assert [s[0] for s in spans[1:]] == [s[1] for s in spans[:-1]]
+        assert spans[0][0] == 0 and spans[-1][1] == n16
+        counts = [-(-(stop - start) // cp.DIRECT_TILE)
+                  for start, stop in spans]
+        assert sum(counts) == tiles and max(counts) - min(counts) <= 1
+        assert counts == [geo.base + (b < geo.extra)
+                          for b in range(geo.grid)]
+    assert cp.direct_geometry(0, sms).grid == 0
 
 
 def test_roll_rejects_what_the_kernel_does_not_take():
@@ -221,13 +283,26 @@ def test_probe_copy_entry_point_on_cpu():
     lines = proc.stdout.strip().splitlines()
     assert lines[0].startswith("probe_copy: 64 x 256 bf16 (32768 bytes) on "
                                "cpu")
-    labels = [line.split(":")[0] for line in lines[1:]]
+    labels = [line.split(":")[0] for line in lines[1:-3]]
     assert labels == [label for label, _ in probe_copy.variants()]
-    assert labels[:3] == ["copy_block", "copy_direct",
-                          "copy_bounce n_slots=2 chunk=16 KB"]
-    for line in lines[1:]:
+    assert labels[:5] == ["copy_block", "copy_direct tiles_per_block=1",
+                          "copy_direct tiles_per_block=2",
+                          "copy_direct tiles_per_block=4",
+                          "copy_direct tiles_per_block=persistent"]
+    assert probe_copy.direct_label() in labels
+    # the ring's sweep: one store unread (stores=1) to the TPU's (stores=7)
+    for n_slots in cp.SLOTS:
+        assert probe_copy.bounce_label(n_slots) in labels
+    assert ("copy_bounce n_slots=8 stores=1 chunk=16 KB blocks_per_sm=1 "
+            "dynamic=0") in labels
+    assert ("copy_bounce n_slots=8 stores=7 chunk=4 KB blocks_per_sm=2 "
+            "dynamic=1") in labels
+    for line in lines[1:-3]:
         assert "GB/s" in line and "output bit-identical" in line
         assert "of 3.35 TB/s" not in line   # no device figure from the CPU
+    assert [line.split(":")[0] for line in lines[-3:]] == [
+        "fastest copy_direct", "fastest copy_bounce n_slots=2",
+        "fastest copy_bounce n_slots=8"]
 
 
 def test_probe_copy_without_a_card_exits_non_zero():
