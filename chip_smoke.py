@@ -2,6 +2,13 @@
 """Drive the PyTorch port on one CUDA card, phase by phase.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline DIR
+
+With ``--baseline``, after the device and build phases, the fused CE
+kernels of the port's version under DIR (an earlier commit's
+``dasemanticsegmentationaml_tpu_torch/``, unpacked with ``git archive``
+into a git-ignored directory) are timed against this checkout's, in turns
+A B B A, and nothing else runs (``compare_baseline``).
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
                   fallback); prints its name and power limit from nvidia-smi.
@@ -15,9 +22,11 @@
                   and at odd, identity and one-pixel edge shapes.
 4. ce-kernel   -- the fused upsample+CE forward and backward kernels against
                   their plain version (loss, gradient) in fp32 and bf16, at
-                  the train step's three head shapes and at edge shapes, with
-                  ignored, out-of-range and all-ignored labels; two runs
-                  bit-identical.
+                  the train step's three head shapes and at edge shapes
+                  (odd sizes, identity, downsampling, h = 1 and 2, w = 1,
+                  B = 1 at 1024x512, C = 3 and 32, band edges between
+                  output rows), with ignored, out-of-range and all-ignored
+                  labels; two runs bit-identical.
 5. stdc-kernel -- the fused CatBottleneck kernels (fused_cat_s1 / _s2)
                   against their plain PyTorch version on folded weights, at
                   the six STDC813 bottleneck shapes at batch 8, 1024x512 and
@@ -69,12 +78,15 @@
 14. da-parity  -- one fp32 DA step (DW+BN discriminator) at 2x3x1024x512 on
                   the card against the same step on the CPU (TF32 off) and in
                   fp64 on the CPU.
-15. timing     -- CUDA-event times of every kernel and of its plain version,
+15. timing     -- CUDA-event times of every kernel and of its plain version
+                  (the CE kernels and their plain version also by their
+                  device time alone, from the profiler's kernel sums),
                   features + argmax kernel throughput, the bf16 train step at
                   batch 8 with the CE kernel and with its plain version (turns
                   A B B A, peak memory), the bf16 DA step at batch 8, the
                   features[2:8] chain eager (cuDNN) against fused, and
-                  torch.profiler passes: device busy share and top kernels.
+                  torch.profiler passes: device busy share, top kernels and
+                  the CE kernels' share of the train and DA steps.
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record: each kernel's launches on its
@@ -82,8 +94,10 @@ path, its largest difference from its plain version, its time, its plain
 version's and, where one PyTorch call computes the same function, that
 call's (``library_ms``), beside its bound (``bound_ms``: the larger of its
 bytes over 3.35 TB/s and its operations over their peak rate, from this
-run's shapes; ``bound_by`` says which). The last line is
-``{"ok": true, "device": {...}}``.
+run's shapes; ``bound_by`` says which). Every ``ms`` there is a chain of
+calls timed by CUDA events, the host path included; the CE kernels add
+their device time alone and their plain version's (``device_ms``,
+``plain_device_ms``). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -113,6 +127,12 @@ ROLL_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/tile_roll.cu"
 ROLL_REPLACES = "tools/mosaic_roll_repro.py:30"
 #: the ring depth whose time stands for copy_bounce in the kernels' record
 BOUNCE_SLOTS = 8
+#: the CE kernels' names in a profile: the forward's band and finishing
+#: kernels, the backward's band and edge kernels (an earlier version's
+#: ce_*_rows ones too)
+CE_KERNELS = {"fwd": ("ce_fwd",), "bwd": ("ce_bwd",)}
+#: the module name under which --baseline imports another version
+BASELINE = "baseline_torch_port"
 #: an H100 SXM (NVIDIA's data sheet, dense): operations/s by type, fp32
 #: outside the tensor cores, bf16 on them (its device-memory rate is
 #: tools/probe_copy.py::PEAK_BYTES_PER_S)
@@ -153,6 +173,89 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, match=None, n=20, tries=3):
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    name contains one of ``match`` (every kernel when None), by
+    torch.profiler's kernel sums over ``n`` calls (the host path excluded);
+    and those milliseconds by kernel name. A profile now and then records
+    no kernel of the card at all: it is taken again, up to ``tries`` times,
+    before this raises."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        hits = [e for e in kernels
+                if match is None or any(m in e.key for m in match)]
+        if hits:
+            break
+        seen.append(f"{len(kernels)} kernels")
+    else:
+        raise RuntimeError(f"the profiler saw no kernel named {match} in "
+                           f"{tries} tries (it saw {', '.join(seen)})")
+    by_name = {}
+    for e in hits:
+        name = e.key[:60] if match is None else next(
+            w for w in re.findall(r"\w+", e.key) if any(m in w for m in match))
+        by_name[name] = (by_name.get(name, 0.0)
+                         + e.self_device_time_total / 1e3 / n)
+    return sum(by_name.values()), by_name
+
+
+def ce_calls(fn, x, labels, out_hw):
+    """(forward, backward) of the CE function ``fn``: one forward without
+    autograd, and one backward through a graph kept for reuse."""
+    import torch
+
+    def fwd():
+        with torch.no_grad():
+            fn(x, labels, out_hw)
+
+    loss = fn(x, labels, out_hw)
+
+    def bwd():
+        torch.autograd.grad(loss, x, retain_graph=True)
+
+    return fwd, bwd
+
+
+def load_baseline(root):
+    """``ops/cuda/fused_ce`` of another version of the port, the package
+    ``dasemanticsegmentationaml_tpu_torch/`` under ``root`` (an earlier
+    commit unpacked with ``git archive``), imported under its own name
+    ``baseline_torch_port``: its imports are relative, so its modules,
+    counters and caches stay its own, and its kernels build from its own
+    ``csrc/`` into its own ``build/``."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root),
+                       "dasemanticsegmentationaml_tpu_torch")
+    init = os.path.join(pkg, "__init__.py")
+    if not os.path.isfile(init):
+        raise FileNotFoundError(f"no package at {pkg}")
+    if BASELINE not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            BASELINE, init, submodule_search_locations=[pkg])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[BASELINE] = module
+        spec.loader.exec_module(module)
+    return importlib.import_module(f"{BASELINE}.ops.cuda.fused_ce")
 
 
 def roofline(nbytes, ops):
@@ -267,12 +370,19 @@ def phase_ce_kernel(device):
         ((1, 19, 1, 13), (37, 50), "mixed"),     # h = 1
         ((1, 19, 1, 1), (3, 5), "mixed"),        # one source pixel
         ((2, 19, 8, 16), (64, 128), "ignored"),  # all ignored
+        ((1, 19, 37, 50), (7, 13), "mixed"),     # downsampling
+        ((1, 19, 2, 16), (64, 128), "mixed"),    # h = 2, one band
+        ((1, 19, 128, 64), (1024, 512), "mixed"),  # B = 1, few blocks
+        ((2, 3, 16, 32), (128, 256), "mixed"),   # C = 3 (the generic path)
+        ((2, 32, 16, 32), (128, 256), "mixed"),  # C = 32
+        ((2, 19, 13, 16), (100, 120), "mixed"),  # band edges between rows
+        ((1, 19, 5, 1), (9, 1), "mixed"),        # w = 1
     ]
     fwd0, bwd0 = fc.FWD_LAUNCHES, fc.BWD_LAUNCHES
     calls = 0
     errs = {"loss": 0.0, "grad": 0.0}
     for n, (shape, out_hw, mode) in enumerate(cases):
-        labels = ce_labels(device, (shape[0], *out_hw), n, mode)
+        labels = ce_labels(device, (shape[0], *out_hw), n, mode, shape[1])
         for dtype in (torch.float32, torch.bfloat16):
             x = logits_on(device, shape, n, False, dtype)
             loss, grad = ce_value_and_grad(fc.cross_entropy_upsampled, x,
@@ -1315,7 +1425,8 @@ def time_da_step(device, card):
         f"{ms:.3f} ms/step {ms_runs} = {8000.0 / ms:.1f} images/s, peak "
         f"memory {peak:.2f} GiB | {card}")
     profile_steps(lambda: step(xs, ys, xt),
-                  "DA step, bf16, batch 8, FC D, interleaved", card)
+                  "DA step, bf16, batch 8, FC D, interleaved", card,
+                  watch=CE_KERNELS["fwd"] + CE_KERNELS["bwd"])
     return ms, peak
 
 
@@ -1374,9 +1485,11 @@ def phase_timing(device, model, card):
     return times
 
 
-def profile_steps(run_one, what, card, n=10):
+def profile_steps(run_one, what, card, n=10, watch=()):
     """Where the time of ``run_one`` goes: device busy share, kernels per
-    call, host enqueue time, and the heaviest kernels (torch.profiler)."""
+    call, host enqueue time, the heaviest kernels (torch.profiler) and the
+    share of device time of the kernels whose names contain one of
+    ``watch``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1404,6 +1517,12 @@ def profile_steps(run_one, what, card, n=10):
         f"of {wall_ms:.2f} ms (profiled); {launches} kernels/call; host "
         f"enqueue of one call {enqueue_ms:.2f} ms vs {busy_ms / n:.3f} ms of "
         f"kernels | {card}")
+    if watch:
+        hits = [e for e in kernels if any(m in e.key for m in watch)]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3 / n
+        log("profile", f"{what}: kernels matching {list(watch)} "
+            f"{ms:.4f} ms/call = {100 * ms * n / busy_ms:.2f}% of device "
+            f"time, {sum(e.count for e in hits) // n} launches/call | {card}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
         ms = e.self_device_time_total / 1e3 / n
@@ -1423,52 +1542,62 @@ def profile_eval(model, x, card):
     profile_steps(run_one, "features + kernel, bf16, batch 8 (eval)", card)
 
 
-def time_ce(device, card):
-    """The fused CE kernels against the plain version, forward and
-    backward apart, at the train step's head shapes; turns A B B A."""
+def time_ce(device, card, fns=None):
+    """Two versions of the CE function, A and B (``fns``, in that order; by
+    default the plain version and the kernels), forward and backward apart,
+    at the train step's head shapes, in turns A B B A: by the chain
+    (``cuda_ms``: the wrapper's and autograd's host path included) and by
+    device time alone (``device_ms``: the CE kernels' profiler sums; every
+    kernel of the plain version). Returns, per (shape, dtype), the means by
+    (part, name) for the chain and (part, name, "device")."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
 
+    fns = fns or {"plain": fc.cross_entropy_upsampled_reference,
+                  "kernel": fc.cross_entropy_upsampled}
+    a, b = fns
     times = {}
-    fns = {"kernel": fc.cross_entropy_upsampled,
-           "plain": fc.cross_entropy_upsampled_reference}
     for shape, out_hw in CE_MAIN_CASES[1:]:
         labels = ce_labels(device, (shape[0], *out_hw), 0, "mixed")
         for dtype in (torch.bfloat16, torch.float32):
             x = logits_on(device, shape, 0, False, dtype).requires_grad_()
-            res = {}
+            calls = {name: dict(zip(("fwd", "bwd"),
+                                    ce_calls(fn, x, labels, out_hw)))
+                     for name, fn in fns.items()}
+            res, split = {}, {}
             for part in ("fwd", "bwd"):
-                for name in ("plain", "kernel", "kernel", "plain"):
-                    fn = fns[name]
-                    if part == "fwd":
-                        def call(fn=fn):
-                            with torch.no_grad():
-                                fn(x, labels, out_hw)
-                    else:
-                        loss = fn(x, labels, out_hw)
-
-                        def call(loss=loss):
-                            torch.autograd.grad(loss, x, retain_graph=True)
-                    iters = 50 if name == "kernel" else 10
+                for name in (a, b, b, a):
+                    plain = name == "plain"
+                    call = calls[name][part]
                     res.setdefault((part, name), []).append(
-                        cuda_ms(call, iters))
+                        cuda_ms(call, 10 if plain else 50))
+                    ms, split[(part, name)] = device_ms(
+                        call, None if plain else CE_KERNELS[part],
+                        n=5 if plain else 20)
+                    res.setdefault((part, name, "device"), []).append(ms)
             mean = {k: sum(v) / len(v) for k, v in res.items()}
             tag = str(dtype).replace("torch.", "")
             times[(shape, tag)] = mean
-            log("timing", f"fused CE {shape}->{out_hw} {tag}: forward "
-                f"kernel {mean[('fwd', 'kernel')]:.4f} ms "
-                f"{res[('fwd', 'kernel')]}, plain {mean[('fwd', 'plain')]:.4f}"
-                f" ms {res[('fwd', 'plain')]}; backward kernel "
-                f"{mean[('bwd', 'kernel')]:.4f} ms {res[('bwd', 'kernel')]}, "
-                f"plain {mean[('bwd', 'plain')]:.4f} ms "
-                f"{res[('bwd', 'plain')]} | {card}")
+            for part in ("fwd", "bwd"):
+                log("timing", f"fused CE {shape}->{out_hw} {tag} {part}, "
+                    f"turns {a} {b} {b} {a}: " + "; ".join(
+                        f"{name} device {mean[(part, name, 'device')]:.4f} ms "
+                        f"{[round(t, 4) for t in res[(part, name, 'device')]]}"
+                        + ("" if name == "plain" else " (" + ", ".join(
+                            f"{k} {v:.4f}" for k, v in
+                            split[(part, name)].items()) + ")")
+                        + f", chain {mean[(part, name)]:.4f} ms "
+                        f"{[round(t, 4) for t in res[(part, name)]]}"
+                        for name in (a, b)) + f" | {card}")
     return times
 
 
-def time_train_step(device, card):
-    """The bf16 train step at batch 8, 1024x512 with the fused CE kernel
-    and with its plain version, in turns A B B A; then a profiler pass."""
+def time_train_step(device, card, fns=None):
+    """The bf16 train step at batch 8, 1024x512 with two versions of the CE
+    function, A and B (``fns``, in that order; by default the kernels and
+    the plain version), in turns A B B A; then a profiler pass of each
+    version but the plain one."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
@@ -1488,12 +1617,14 @@ def time_train_step(device, card):
     labels = np.where(rng.random((8, 1024, 512)) < 0.05, 255,
                       rng.integers(0, 19, (8, 1024, 512))).astype(np.uint8)
     x, y = prepare_batch(images, labels, device=device, dtype=torch.bfloat16)
+    fns = fns or {"kernel": fc.cross_entropy_upsampled,
+                  "plain": fc.cross_entropy_upsampled_reference}
     steps = {name: make_train_step(model, opt, amp_dtype=torch.bfloat16,
                                    ce=ce)
-             for name, ce in (("kernel", fc.cross_entropy_upsampled),
-                              ("plain", fc.cross_entropy_upsampled_reference))}
+             for name, ce in fns.items()}
+    a, b = fns
     runs = {}
-    for name in ("kernel", "plain", "plain", "kernel"):
+    for name in (a, b, b, a):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         ms = cuda_ms(lambda: steps[name](x, y), 10, warmup=2)
@@ -1509,8 +1640,11 @@ def time_train_step(device, card):
         log("timing", f"train step, bf16, batch 8, CE {name}: mean "
             f"{ms:.3f} ms/step = {8000.0 / ms:.1f} images/s, peak memory "
             f"{summary[name][1]:.2f} GiB | {card}")
-    profile_steps(lambda: steps["kernel"](x, y),
-                  "train step with the CE kernel, bf16, batch 8", card)
+    for name in fns:
+        if name != "plain":
+            profile_steps(lambda: steps[name](x, y),
+                          f"train step with the CE {name}, bf16, batch 8",
+                          card, watch=CE_KERNELS["fwd"] + CE_KERNELS["bwd"])
     return summary
 
 
@@ -1588,11 +1722,37 @@ def kernel_record(name, source, replaces, launches, max_err, ms, plain_ms,
             "library_ms": library_ms, **extra}
 
 
-def main():
+def compare_baseline(device, card, root):
+    """``--baseline DIR``: the CE kernels of another version of the port
+    (A, ``load_baseline``) against this checkout's (B) on this card, in one
+    process: ``time_ce``'s device and chain times in turns A B B A, then
+    the bf16 train step with each (``time_train_step``) and its CE kernels'
+    share of device time."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+
+    base = load_baseline(root)
+    base._library()
+    log("baseline", f"A = baseline, the package under {root}; B = kernel, "
+        f"this checkout | {card}")
+    fns = {"baseline": base.cross_entropy_upsampled,
+           "kernel": fc.cross_entropy_upsampled}
+    time_ce(device, card, fns)
+    time_train_step(device, card, fns)
+
+
+def main(argv=None):
+    import argparse
     import concurrent.futures as futures
 
     import torch
 
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one CUDA card, phase by phase.")
+    parser.add_argument(
+        "--baseline", metavar="DIR",
+        help="instead of the phases, time the CE kernels against those of "
+             "the version of dasemanticsegmentationaml_tpu_torch/ under DIR")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs only on a card", file=sys.stderr)
@@ -1627,6 +1787,11 @@ def main():
     for name in sources:
         for line in BUILD_LOGS.get(name, "").splitlines():
             log("build", f"{name}: {line}")
+    if args.baseline:
+        compare_baseline(device, card, args.baseline)
+        log("done", f"baseline compared in {time.perf_counter() - t_start:.1f}"
+            f" s | {card}")
+        return 0
 
     max_err = phase_kernel(device)
     ce_errs = phase_ce_kernel(device)
@@ -1676,15 +1841,16 @@ def main():
     print(json.dumps({"kernels": [
         kernel_record("upsample_argmax", KERNEL_SOURCE, KERNEL_REPLACES,
                       eval_launches, max_err, kern, plain,
-                      bound_upsample_argmax((2, 19, 128, 64), (1024, 512), 2)),
-        kernel_record("fused_ce_fwd", CE_SOURCE, CE_REPLACES,
-                      train_launches["fused_ce_fwd"], ce_errs["loss"],
-                      ce[("fwd", "kernel")], ce[("fwd", "plain")],
-                      bound_ce(ce_shape, ce_hw, 2, n_valid, False)),
-        kernel_record("fused_ce_bwd", CE_SOURCE, CE_REPLACES,
-                      train_launches["fused_ce_bwd"], ce_errs["grad"],
-                      ce[("bwd", "kernel")], ce[("bwd", "plain")],
-                      bound_ce(ce_shape, ce_hw, 2, n_valid, True))] + [
+                      bound_upsample_argmax((2, 19, 128, 64), (1024, 512), 2))
+        ] + [
+        kernel_record(f"fused_ce_{part}", CE_SOURCE, CE_REPLACES,
+                      train_launches[f"fused_ce_{part}"],
+                      ce_errs["loss" if part == "fwd" else "grad"],
+                      ce[(part, "kernel")], ce[(part, "plain")],
+                      bound_ce(ce_shape, ce_hw, 2, n_valid, part == "bwd"),
+                      device_ms=ce[(part, "kernel", "device")],
+                      plain_device_ms=ce[(part, "plain", "device")])
+        for part in ("fwd", "bwd")] + [
         kernel_record(f"fused_cat_s{s}", STDC_SOURCE, STDC_REPLACES[s],
                       stdc_launches[f"fused_cat_s{s}"], stdc_errs[s],
                       stdc_ms[s][0], stdc_ms[s][1], stdc_bound[s])

@@ -72,7 +72,14 @@ def train_id_lut() -> np.ndarray:
     return lut
 
 
+@functools.lru_cache(maxsize=8)
+def train_id_lut_on(device: torch.device) -> torch.Tensor:
+    """``train_id_lut`` as int32 on ``device``, copied there once (a copy
+    per batch would wait for the stream), outside inference mode."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(train_id_lut().astype(np.int32)).to(device)
+
+
 def remap_train_ids(labels: torch.Tensor) -> torch.Tensor:
     """Raw uint8 ids -> int32 trainIds, one gather on ``labels``' device."""
-    lut = torch.from_numpy(train_id_lut().astype(np.int32)).to(labels.device)
-    return lut[labels.long()]
+    return train_id_lut_on(labels.device)[labels.long()]

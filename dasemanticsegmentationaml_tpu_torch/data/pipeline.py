@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as futures
+import functools
 import itertools
 from typing import Iterable, Iterator, Tuple
 
@@ -24,6 +25,19 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def normalisation_on(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) as fp32 tensors on ``device``, copied there once.
+
+    A copy from pageable host memory waits for the stream, so copying
+    them on every batch would make the host wait for the queued steps.
+    Made outside inference mode, as ``ops/resize.py::taps_on`` makes its
+    taps, so that evaluation and training share them."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(IMAGENET_MEAN).to(device),
+                torch.from_numpy(IMAGENET_STD).to(device))
+
+
 def prepare_batch(images_u8, labels_u8, *, device: torch.device,
                   remap: bool = False, dtype: torch.dtype = torch.float32,
                   memory_format: torch.memory_format = torch.contiguous_format
@@ -31,11 +45,13 @@ def prepare_batch(images_u8, labels_u8, *, device: torch.device,
     """uint8 NHWC images + uint8 NHW labels -> normalised NCHW images of
     ``dtype`` and int32 labels, on ``device`` (JAX pipeline.py:98-125,
     without augmentation). ``((u8 / 255) - mean) / std`` runs in fp32, in
-    that order; ``remap`` maps raw GTA5 ids to trainIds."""
+    that order; ``remap`` maps raw GTA5 ids to trainIds. From pinned
+    host tensors it only enqueues work: the constants are cached per
+    device (``normalisation_on``, ``labels.py::train_id_lut_on``)."""
+    device = torch.device(device)
     images = torch.as_tensor(images_u8).to(device, non_blocking=True)
     labels = torch.as_tensor(labels_u8).to(device, non_blocking=True)
-    mean = torch.from_numpy(IMAGENET_MEAN).to(device)
-    std = torch.from_numpy(IMAGENET_STD).to(device)
+    mean, std = normalisation_on(device)
     imgs = (images.float() / 255.0 - mean) / std
     imgs = imgs.permute(0, 3, 1, 2).contiguous(memory_format=memory_format)
     imgs = imgs.to(dtype)
@@ -120,8 +136,9 @@ def device_prefetch(batches: Iterable) -> Iterator:
 
     ``batches`` yields prepared batches: ``prepare_batch`` enqueues the
     pinned host-to-device copy and the normalisation on the stream and
-    returns at once, so pulling the next batch before the current step
-    issues its transfer before the step's kernels."""
+    returns at once (no copy of its constants waits for the stream), so
+    pulling the next batch before the current step issues its transfer
+    before the step's kernels."""
     it = iter(batches)
     queue = collections.deque(itertools.islice(it, 2))
     while queue:

@@ -3,9 +3,10 @@
 Each source exposes a plain ``extern "C"`` launcher, so it compiles with
 ``nvcc`` alone in seconds; including PyTorch's headers would cost minutes
 per build. The library lands in ``build/torch_kernels/`` beside the
-package, named by a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. Nothing is compiled
-when a module is imported: the first launch builds.
+package, named by a hash of the source, the local headers it includes and
+the flags, so an edited source or header is rebuilt and an unchanged one
+is loaded as it is. Nothing is compiled when a module is imported: the
+first launch builds.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,6 +51,31 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_digest(src: str) -> str:
+    """16 hex digits of SHA-256 over the source, every local header it
+    includes (``#include "..."``, found beside the including file, each
+    once, recursively) and the nvcc flags."""
+    h = hashlib.sha256()
+    seen = set()
+    pending = [os.path.abspath(src)]
+    while pending:
+        path = pending.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(text)
+        pending += [os.path.normpath(os.path.join(os.path.dirname(path),
+                                                  inc.decode()))
+                    for inc in _LOCAL_INCLUDE.findall(text)]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library.
 
@@ -60,9 +87,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = source_digest(src)
         so_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
         if not os.path.exists(so_path):
             os.makedirs(BUILD_DIR, exist_ok=True)

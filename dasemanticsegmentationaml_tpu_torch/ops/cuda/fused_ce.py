@@ -35,7 +35,7 @@ import torch
 
 from ..losses import cross_entropy_ignore
 from ..resize import _align_corners_taps, taps_on, upsample_two_tap
-from .build import check_launch, current_stream, load_library
+from .build import check_launch, current_stream, load_library, sm_count
 
 #: kernel launches made by ``cross_entropy_upsampled``'s forward and its
 #: backward in this process; a run sets them to 0 and reads them after
@@ -44,11 +44,19 @@ BWD_LAUNCHES = 0
 
 #: the kernels keep one pixel's class logits in registers
 MAX_CLASSES = 32
+#: threads per block of the band kernels (csrc/fused_ce.cu::kThreads;
+#: ``_library`` checks that the two agree)
+THREADS = 256
+#: the most shared memory a block of an H100 can take (227 KB); the
+#: geometry is sized here, and a launch past the card's own limit fails
+SMEM_LIMIT = 232448
+#: the most source rows a backward band holds
+MAX_BAND_ROWS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FWD_ARGTYPES = [_P] * 8 + [_I] * 7 + [_P] * 5
-_BWD_ARGTYPES = [_P] * 12 + [_I] * 7 + [_P] * 3
+_FWD_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P] * 5
+_BWD_ARGTYPES = [_P] * 11 + [_I] * 9 + [_P] * 4
 _INT_MAX = 2**31 - 1
 
 
@@ -61,14 +69,22 @@ def _library() -> ctypes.CDLL:
                          (lib.fused_ce_bwd_bf16, _BWD_ARGTYPES)):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # the geometry is set here and laid out there: they must agree
+    lib.fused_ce_bwd_smem_bytes.argtypes = [_I] * 4
+    if lib.fused_ce_threads() != THREADS or any(
+            lib.fused_ce_bwd_smem_bytes(*g) != bwd_smem_bytes(*g)
+            for g in ((19, 64, 4, 8), (32, 1, 1, 1), (3, 500, 8, 32))):
+        raise RuntimeError("csrc/fused_ce.cu and ops/cuda/fused_ce.py "
+                           "disagree on THREADS or bwd_smem_bytes")
     return lib
 
 
 def tap_ranges(in_size: int, out_size: int) -> np.ndarray:
     """(in_size, 4) int32: for each source index j, [start, end) of the
     output indices whose ``lo`` tap is j, then of those whose ``hi`` tap is
-    j. The taps are monotone, so each set is one contiguous range; the
-    backward kernels gather over them."""
+    j. The taps are monotone, so each set is one contiguous range: the
+    kernels give the x of the first range to one thread (a column
+    segment, whose hi tap is one column)."""
     lo, hi, _ = _align_corners_taps(in_size, out_size)
     j = np.arange(in_size)
     return np.stack([np.searchsorted(lo, j, "left"),
@@ -77,9 +93,67 @@ def tap_ranges(in_size: int, out_size: int) -> np.ndarray:
                      np.searchsorted(hi, j, "right")], 1).astype(np.int32)
 
 
+def band_rows(in_size: int, out_size: int, k: int) -> np.ndarray:
+    """The backward's band plan: (ceil(in_size / k) + 1,) int32. Band n
+    holds the source rows [n*k, (n+1)*k) and walks the output rows
+    [plan[n], plan[n+1]), those whose ``lo`` row tap lies in the band;
+    their ``hi`` tap lies in the band or is its edge row (n+1)*k, the next
+    band's first, whose two partials the edge kernel adds."""
+    lo, _, _ = _align_corners_taps(in_size, out_size)
+    starts = np.searchsorted(lo, np.arange(0, in_size, k), "left")
+    return np.append(starts, out_size).astype(np.int32)
+
+
+def bwd_smem_bytes(c: int, w: int, k: int, rows_per_pass: int) -> int:
+    """Shared memory of one backward block, as csrc/fused_ce.cu::
+    bwd_smem_bytes lays it out: fp32 dX of k + 1 rows and two column sums
+    per pass row."""
+    return 4 * c * ((k + 1) * w + rows_per_pass * (2 * w + 1))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_rows_per_band(b: int, out_h: int, w: int, sms: int) -> int:
+    """Output rows per forward block: about two column segments a thread
+    (2 * THREADS / w rows), halved while the grid has fewer than two
+    blocks per SM."""
+    rows = max(1, min(out_h, -(-2 * THREADS // w)))
+    while rows > 1 and b * -(-out_h // rows) < 2 * sms:
+        rows = -(-rows // 2)
+    return rows
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_geometry(b: int, c: int, h: int, w: int, sms: int
+                 ) -> Tuple[int, int]:
+    """(k, rows_per_pass) of the backward. k source rows a band: the most
+    of 8, 4 and 2 that still gives 1.5 blocks per SM (at least 2, so that
+    the edge rows are at most half of dX), or h; about two column segments
+    a thread a pass (2 * THREADS / w output rows). Both shrink to fit the
+    shared memory; ValueError if one row does not fit."""
+    k = next((k for k in (MAX_BAND_ROWS, MAX_BAND_ROWS // 2)
+              if 2 * b * -(-h // k) >= 3 * sms), 2)
+    k = min(k, h)
+    rpp = max(1, min(32, 2 * THREADS // w))
+    while bwd_smem_bytes(c, w, k, rpp) > SMEM_LIMIT and rpp > 1:
+        rpp //= 2
+    while bwd_smem_bytes(c, w, k, rpp) > SMEM_LIMIT and k > 1:
+        k -= 1
+    if bwd_smem_bytes(c, w, k, rpp) > SMEM_LIMIT:
+        raise ValueError(f"{c} classes x {w} source columns do not fit the "
+                         f"backward's shared memory ({SMEM_LIMIT} bytes)")
+    return k, rpp
+
+
 @functools.lru_cache(maxsize=64)
 def _ranges_on(in_size: int, out_size: int, device: torch.device):
-    return torch.from_numpy(tap_ranges(in_size, out_size)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(tap_ranges(in_size, out_size)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _bands_on(in_size: int, out_size: int, k: int, device: torch.device):
+    with torch.inference_mode(False):
+        return torch.from_numpy(band_rows(in_size, out_size, k)).to(device)
 
 
 def cross_entropy_upsampled_reference(logits: torch.Tensor,
@@ -103,9 +177,12 @@ class _FusedCE(torch.autograd.Function):
         out_h, out_w = out_hw
         dev = logits.device
         lo_y, hi_y, ty = taps_on(h, out_h, dev)
-        lo_x, hi_x, tx = taps_on(w, out_w, dev)
-        part_sum = torch.empty(b * out_h, dtype=torch.float32, device=dev)
-        part_cnt = torch.empty(b * out_h, dtype=torch.int32, device=dev)
+        _, hi_x, tx = taps_on(w, out_w, dev)
+        xr = _ranges_on(w, out_w, dev)
+        rows = fwd_rows_per_band(b, out_h, w, sm_count(dev.index))
+        n_parts = b * -(-out_h // rows)
+        part_sum = torch.empty(n_parts, dtype=torch.float32, device=dev)
+        part_cnt = torch.empty(n_parts, dtype=torch.int32, device=dev)
         loss = torch.empty((), dtype=torch.float32, device=dev)
         n = torch.empty((), dtype=torch.float32, device=dev)
         lib = _library()
@@ -113,8 +190,8 @@ class _FusedCE(torch.autograd.Function):
               else lib.fused_ce_fwd_bf16)
         check_launch(fn(
             logits.data_ptr(), labels.data_ptr(), lo_y.data_ptr(),
-            hi_y.data_ptr(), ty.data_ptr(), lo_x.data_ptr(), hi_x.data_ptr(),
-            tx.data_ptr(), b, c, h, w, out_h, out_w, ignore_index,
+            hi_y.data_ptr(), ty.data_ptr(), hi_x.data_ptr(), tx.data_ptr(),
+            xr.data_ptr(), b, c, h, w, out_h, out_w, ignore_index, rows,
             part_sum.data_ptr(), part_cnt.data_ptr(), loss.data_ptr(),
             n.data_ptr(), current_stream(dev)), "fused_ce forward")
         FWD_LAUNCHES += 1
@@ -133,21 +210,26 @@ class _FusedCE(torch.autograd.Function):
         out_h, out_w = ctx.out_hw
         dev = logits.device
         lo_y, hi_y, ty = taps_on(h, out_h, dev)
-        lo_x, hi_x, tx = taps_on(w, out_w, dev)
-        xr, yr = _ranges_on(w, out_w, dev), _ranges_on(h, out_h, dev)
+        _, hi_x, tx = taps_on(w, out_w, dev)
+        xr = _ranges_on(w, out_w, dev)
+        k, rpp = bwd_geometry(b, c, h, w, sm_count(dev.index))
+        bands = _bands_on(h, out_h, k, dev)
+        n_bands = bands.numel() - 1
         g = grad.float().contiguous()
-        tbuf = torch.empty((b, c, out_h, w), dtype=torch.float32, device=dev)
+        # the partials of the bands' edge rows: (B, bands, C, w) fp32 each
+        edges = torch.empty((2, b, n_bands, c, w), dtype=torch.float32,
+                            device=dev)
         dx = torch.empty_like(logits)
         lib = _library()
         fn = (lib.fused_ce_bwd_f32 if logits.dtype == torch.float32
               else lib.fused_ce_bwd_bf16)
         check_launch(fn(
             logits.data_ptr(), labels.data_ptr(), lo_y.data_ptr(),
-            hi_y.data_ptr(), ty.data_ptr(), lo_x.data_ptr(), hi_x.data_ptr(),
-            tx.data_ptr(), xr.data_ptr(), yr.data_ptr(), g.data_ptr(),
-            n.data_ptr(), b, c, h, w, out_h, out_w, ctx.ignore_index,
-            tbuf.data_ptr(), dx.data_ptr(), current_stream(dev)),
-            "fused_ce backward")
+            hi_y.data_ptr(), ty.data_ptr(), hi_x.data_ptr(), tx.data_ptr(),
+            xr.data_ptr(), bands.data_ptr(), g.data_ptr(), n.data_ptr(), b,
+            c, h, w, out_h, out_w, ctx.ignore_index, k, rpp,
+            edges[0].data_ptr(), edges[1].data_ptr(), dx.data_ptr(),
+            current_stream(dev)), "fused_ce backward")
         BWD_LAUNCHES += 1
         return dx, None, None, None
 
@@ -187,6 +269,7 @@ def cross_entropy_upsampled(logits: torch.Tensor, labels: torch.Tensor,
                         f"got {labels.dtype} on {labels.device}")
     if c > MAX_CLASSES:
         raise ValueError(f"{c} classes: the kernel takes at most {MAX_CLASSES}")
+    bwd_geometry(b, c, h, w, 1)  # raises if one row does not fit
     if b * out_h > _INT_MAX or out_w > _INT_MAX:
         raise ValueError("a dimension exceeds the kernel's int range")
     return _FusedCE.apply(logits, labels, (out_h, out_w), int(ignore_index))

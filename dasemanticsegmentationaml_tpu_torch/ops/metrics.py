@@ -3,7 +3,9 @@
 Counterpart of ``dasemanticsegmentationaml_tpu/ops/metrics.py``. There the
 confusion matrix is an fp32 one-hot einsum, chunked to stay below the fp32
 integer-exact bound (metrics.py:31-87); here it is one int64
-``torch.bincount``, exact at any batch size.
+``index_add_`` into a fixed-size zero histogram, exact at any batch size
+(``torch.bincount`` would read the largest index back to the host to size
+its output, a sync on every batch).
 
 Semantics (reference utils.py:151-172):
 * ``confusion_matrix(labels, preds)`` is ``fast_hist``: hist[label, pred],
@@ -28,8 +30,9 @@ def confusion_matrix(labels: torch.Tensor, preds: torch.Tensor,
              & (preds >= 0) & (preds < num_classes))
     n = num_classes * num_classes
     idx = torch.where(valid, labels * num_classes + preds, n)
-    return torch.bincount(idx, minlength=n + 1)[:n].reshape(
-        num_classes, num_classes)
+    hist = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
+    hist.index_add_(0, idx, torch.ones_like(idx))
+    return hist[:n].reshape(num_classes, num_classes)
 
 
 def per_class_iou(hist: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Counterpart of ``dasemanticsegmentationaml_tpu/train/evaluate.py``. Per
 batch: ``features`` -> the fused upsample+argmax kernel -> int32
 predictions -> the confusion matrix and the correct-pixel count, all
-accumulated as int64 on the device and read back once at the end. IoU is
+accumulated as int64 on the device (``eval_counts``) and read back once at
+the end. Batches are prepared two ahead of the model through
+``data/pipeline.py::device_prefetch`` (JAX evaluate.py:199). IoU is
 computed on the host in float64 by ``ops/metrics.py::per_class_iou`` (JAX
 evaluate.py:246-257; reference utils.py:170-172). The JAX module's fp32
 flush windows and its
@@ -25,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.pipeline import device_prefetch
 from ..ops.cuda.upsample_argmax import upsample_argmax
 from ..ops.metrics import confusion_matrix, per_class_iou
 
@@ -50,6 +53,27 @@ def predict(model, images: torch.Tensor, use_fused_kernel: bool,
     return out.argmax(1).to(torch.int32)
 
 
+def eval_counts(model, loader, num_classes: int, *,
+                prepare: Callable[[Tuple], Tuple[torch.Tensor, torch.Tensor]],
+                device: torch.device, use_fused_kernel: bool = True,
+                amp_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The whole dataset's int64 confusion matrix and correct-pixel count,
+    on the device, and the pixel count. Nothing is read back: with pinned
+    batches the host only enqueues work."""
+    hist = torch.zeros((num_classes, num_classes), dtype=torch.int64,
+                       device=device)
+    correct = torch.zeros((), dtype=torch.int64, device=device)
+    total = 0
+    with torch.inference_mode():
+        for images, labels in device_prefetch(prepare(b) for b in loader):
+            pred = predict(model, images, use_fused_kernel, amp_dtype)
+            hist += confusion_matrix(labels, pred, num_classes)
+            correct += (pred == labels).sum()
+            total += pred.numel()
+    return hist, correct, total
+
+
 def evaluate(model, loader, num_classes: int, *,
              prepare: Callable[[Tuple], Tuple[torch.Tensor, torch.Tensor]],
              device: torch.device, use_fused_kernel: bool = True,
@@ -57,17 +81,9 @@ def evaluate(model, loader, num_classes: int, *,
              print_results: bool = True) -> Tuple[float, float]:
     """Whole-dataset eval; returns (precision, miou) like reference val()
     (JAX evaluate.py:133-258)."""
-    hist = torch.zeros((num_classes, num_classes), dtype=torch.int64,
-                       device=device)
-    correct = torch.zeros((), dtype=torch.int64, device=device)
-    total = 0
-    with torch.inference_mode():
-        for batch in loader:
-            images, labels = prepare(batch)
-            pred = predict(model, images, use_fused_kernel, amp_dtype)
-            hist += confusion_matrix(labels, pred, num_classes)
-            correct += (pred == labels).sum()
-            total += pred.numel()
+    hist, correct, total = eval_counts(
+        model, loader, num_classes, prepare=prepare, device=device,
+        use_fused_kernel=use_fused_kernel, amp_dtype=amp_dtype)
     precision = int(correct.item()) / max(total, 1)
     miou_list = per_class_iou(hist.cpu()).numpy()
     miou = float(np.mean(miou_list))

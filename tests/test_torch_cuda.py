@@ -7,6 +7,8 @@ This file imports no JAX, so it also runs on a machine without it:
 Without a card every test skips (the fixture decides, at run time).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -57,13 +59,14 @@ def test_kernel_rejects_non_contiguous(cuda_device):
         ua.upsample_argmax(x, (32, 64))
 
 
-def _ce_labels(device, shape, seed, all_ignored=False):
-    """~10% ignore (255), ~5% in 19..254, the rest valid; or all 255."""
+def _ce_labels(device, shape, seed, all_ignored=False, num_classes=19):
+    """~10% ignore (255), ~5% in C..254, the rest valid; or all 255."""
     rng = np.random.default_rng(seed)
-    y = rng.integers(0, 19, shape)
+    y = rng.integers(0, num_classes, shape)
     r = rng.random(shape)
     y = np.where(r < 0.10, 255, y)
-    y = np.where((r >= 0.10) & (r < 0.15), rng.integers(19, 255, shape), y)
+    y = np.where((r >= 0.10) & (r < 0.15),
+                 rng.integers(num_classes, 255, shape), y)
     if all_ignored:
         y = np.full(shape, 255)
     return torch.from_numpy(y.astype(np.int32)).to(device)
@@ -85,6 +88,13 @@ def _ce_value_and_grad(fn, x, labels, out_hw):
     ((1, 19, 1, 13), (37, 50), False),
     ((1, 19, 1, 1), (3, 5), False),
     ((2, 19, 8, 16), (64, 128), True),
+    ((1, 19, 37, 50), (7, 13), False),      # downsampling: rows without taps
+    ((1, 19, 2, 16), (64, 128), False),     # h = 2, one band
+    ((1, 19, 128, 64), (1024, 512), False),  # B = 1: few blocks
+    ((2, 3, 16, 32), (128, 256), False),    # C = 3, the generic path
+    ((2, 32, 16, 32), (128, 256), False),   # C = 32
+    ((2, 19, 13, 16), (100, 120), False),   # band edges between output rows
+    ((1, 19, 5, 1), (9, 1), False),         # w = 1
 ])
 def test_fused_ce_equals_plain_version(cuda_device, shape, out_hw,
                                        all_ignored, dtype):
@@ -92,7 +102,8 @@ def test_fused_ce_equals_plain_version(cuda_device, shape, out_hw,
     one bf16 ulp (at most 2^-7 |grad|) for bf16 gradients; a second run
     bit-identical; one launch of each kernel per call."""
     x = _logits(cuda_device, shape, 0, False, dtype)
-    labels = _ce_labels(cuda_device, (shape[0], *out_hw), 1, all_ignored)
+    labels = _ce_labels(cuda_device, (shape[0], *out_hw), 1, all_ignored,
+                        shape[1])
     before = (fc.FWD_LAUNCHES, fc.BWD_LAUNCHES)
     loss, grad = _ce_value_and_grad(fc.cross_entropy_upsampled, x, labels,
                                     out_hw)
@@ -126,6 +137,81 @@ def test_fused_ce_rejects_what_the_kernel_does_not_take(cuda_device):
             torch.zeros(1, 40, 8, 16, device=cuda_device),
             torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda_device),
             (32, 64))
+
+
+def _pinned_batch(seed, n=2, h=64, w=128):
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.integers(0, 256, (n, h, w, 3),
+                                           dtype=np.uint8)).pin_memory()
+    labels = torch.from_numpy(rng.integers(0, 35, (n, h, w),
+                                           dtype=np.uint8)).pin_memory()
+    return images, labels
+
+
+@contextlib.contextmanager
+def _sync_debug(mode):
+    """``torch.cuda.set_sync_debug_mode`` for a block, restored after."""
+    saved = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+
+
+@pytest.mark.cuda
+def test_prepare_batch_does_not_wait_for_the_stream(cuda_device):
+    """From pinned host tensors, ``prepare_batch`` (GTA5's remap included)
+    only enqueues work once its per-device constants exist: no call in it
+    synchronizes."""
+    from dasemanticsegmentationaml_tpu_torch.data.labels import train_id_lut
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        prepare_batch)
+
+    images, labels = _pinned_batch(0)
+    prepare_batch(images, labels, device=cuda_device, remap=True)
+    with _sync_debug("error"):
+        for _ in range(3):
+            x, y = prepare_batch(images, labels, device=cuda_device,
+                                 remap=True, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert x.shape == (2, 3, 64, 128) and x.dtype == torch.bfloat16
+    want = train_id_lut()[labels.numpy()].astype(np.int32)
+    np.testing.assert_array_equal(y.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_evaluate_reads_back_only_at_the_end(cuda_device):
+    """The eval loop (prefetch, model, kernel, histogram, counts) runs in
+    sync-debug mode "error": nothing is read back per batch. Its counts
+    give ``evaluate``'s precision and mIoU, which reads back once."""
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        prepare_batch)
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet)
+    from dasemanticsegmentationaml_tpu_torch.ops.metrics import per_class_iou
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+
+    model = build_bisenet(19, device=cuda_device,
+                          generator=torch.Generator().manual_seed(0)).eval()
+    batches = [_pinned_batch(i) for i in range(3)]
+
+    def prepare(batch):
+        return prepare_batch(*batch, device=cuda_device, remap=True,
+                             dtype=torch.bfloat16)
+
+    kw = dict(prepare=prepare, device=cuda_device,
+              amp_dtype=torch.bfloat16)
+    ev.eval_counts(model, batches, 19, **kw)  # builds the kernel, the taps
+    before = ua.LAUNCHES
+    with _sync_debug("error"):
+        hist, correct, total = ev.eval_counts(model, batches, 19, **kw)
+    assert ua.LAUNCHES == before + len(batches)
+    precision, miou = ev.evaluate(model, batches, 19, print_results=False,
+                                  **kw)
+    assert total == 3 * 2 * 64 * 128 and int(hist.sum()) <= total
+    assert precision == int(correct.item()) / total
+    assert miou == float(np.mean(per_class_iou(hist.cpu()).numpy()))
 
 
 def _folded_block(stride, in_c, out_c, dtype, device, seed=0):

@@ -140,10 +140,8 @@ def test_tap_ranges_gather_the_tap_matrix(in_size, out_size):
     """Summing the lo range with weight 1-t and the hi range with t gives
     column j of the dense interpolation matrix: the backward's gather form
     is the transpose of the forward's taps."""
-    lo, hi, t = _align_corners_taps(in_size, out_size)
-    dense = np.zeros((out_size, in_size))
-    np.add.at(dense, (np.arange(out_size), lo), 1.0 - t)
-    np.add.at(dense, (np.arange(out_size), hi), t)
+    _, _, t = _align_corners_taps(in_size, out_size)
+    dense = _tap_matrix(in_size, out_size)
     r = fc.tap_ranges(in_size, out_size)
     assert r.shape == (in_size, 4) and r.dtype == np.int32
     gathered = np.zeros_like(dense)
@@ -151,6 +149,120 @@ def test_tap_ranges_gather_the_tap_matrix(in_size, out_size):
         gathered[r[j, 0]:r[j, 1], j] += 1.0 - t[r[j, 0]:r[j, 1]]
         gathered[r[j, 2]:r[j, 3], j] += t[r[j, 2]:r[j, 3]]
     np.testing.assert_allclose(gathered, dense, rtol=0, atol=1e-7)
+
+
+def _tap_matrix(in_size, out_size):
+    lo, hi, t = _align_corners_taps(in_size, out_size)
+    dense = np.zeros((out_size, in_size))
+    np.add.at(dense, (np.arange(out_size), lo), 1.0 - t)
+    np.add.at(dense, (np.arange(out_size), hi), t)
+    return dense
+
+
+def _band_backward(p, h, w, k):
+    """The backward kernel's order of work in numpy (float64), from the
+    wrapper's plans: per band of k source rows, the output rows of
+    ``band_rows``; per row, each column segment's lo and hi sums, added to
+    the left neighbour's hi sum; then the row taps into the band's rows and
+    its edge row; the edge rows from the two bands' partials."""
+    b, c, out_h, out_w = p.shape
+    lo_y, hi_y, ty = _align_corners_taps(h, out_h)
+    _, hi_x, tx = _align_corners_taps(w, out_w)
+    xr = fc.tap_ranges(w, out_w)
+    plan = fc.band_rows(h, out_h, k)
+    n_bands = len(plan) - 1
+    dx = np.full((b, c, h, w), np.nan)
+    edge_e = np.zeros((b, n_bands, c, w))
+    edge_f = np.zeros((b, n_bands, c, w))
+    for n in range(n_bands):
+        i0, kn = n * k, min(k, h - n * k)
+        acc = np.zeros((b, c, k + 1, w))
+        for y in range(plan[n], plan[n + 1]):
+            tl = np.zeros((b, c, w))
+            th = np.zeros((b, c, w + 1))
+            for j in range(w):
+                x0, x1 = xr[j, 0], xr[j, 1]
+                hi = hi_x[x0] if x0 < x1 else j
+                seg = p[:, :, y, x0:x1]
+                tlo = (seg * (1.0 - tx[x0:x1])).sum(-1)
+                thi = (seg * tx[x0:x1]).sum(-1)
+                assert hi in (j, j + 1)
+                if hi == j:
+                    tl[..., j] = tlo + thi
+                else:
+                    tl[..., j] = tlo
+                    th[..., j + 1] = thi
+            t = tl + th[..., :w]
+            assert 0 <= lo_y[y] - i0 < kn and hi_y[y] - i0 <= kn
+            acc[:, :, lo_y[y] - i0] += (1.0 - ty[y]) * t
+            acc[:, :, hi_y[y] - i0] += ty[y] * t
+        for r in range(kn):
+            if r == 0 and n > 0:
+                edge_f[:, n] = acc[:, :, 0]
+            else:
+                dx[:, :, i0 + r] = acc[:, :, r]
+        if n + 1 < n_bands:
+            assert kn == k
+            edge_e[:, n] = acc[:, :, k]
+    for n in range(1, n_bands):
+        dx[:, :, n * k] = edge_e[:, n - 1] + edge_f[:, n]
+    return dx
+
+
+@pytest.mark.parametrize("h,w,out_hw,k", [
+    (128, 8, (1024, 64), 3),     # the train step's heads' rows (1023/127
+    (64, 4, (1024, 64), 2),      # and 1023/63 a tap: ragged), narrow
+    (37, 50, (7, 13), 4),        # downsampling: rows without taps
+    (2, 16, (64, 128), 2),       # h = 2, one band
+    (13, 16, (100, 120), 3),     # bands whose edges fall between rows
+    (1, 13, (37, 50), 1),        # h = 1
+    (5, 1, (9, 1), 2),           # w = 1, one output column
+    (9, 7, (9, 7), 4),           # identity
+])
+def test_band_plan_gathers_the_tap_matrices(h, w, out_hw, k):
+    """The backward's band plan and column segments give Mr^T P Mc: every
+    output row is walked by one band, every output column by one segment,
+    every dX element written once (the edge rows by the edge pass)."""
+    out_h, out_w = out_hw
+    plan = fc.band_rows(h, out_h, k)
+    assert plan.dtype == np.int32 and len(plan) == -(-h // k) + 1
+    assert plan[0] == 0 and plan[-1] == out_h and (np.diff(plan) >= 0).all()
+    xr = fc.tap_ranges(w, out_w)
+    assert xr[0, 0] == 0 and xr[-1, 1] == out_w
+    assert (xr[1:, 0] == xr[:-1, 1]).all()
+    rng = np.random.default_rng(h * 1000 + w)
+    b, c = 2, 3
+    p = rng.standard_normal((b, c, out_h, out_w))
+    got = _band_backward(p, h, w, k)
+    dense = np.einsum("yi,bcyx,xj->bcij", _tap_matrix(h, out_h), p,
+                      _tap_matrix(w, out_w))
+    np.testing.assert_allclose(got, dense, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("b,c,h,w,out_h,sms", [
+    (8, 19, 128, 64, 1024, 132), (8, 19, 64, 32, 1024, 132),
+    (1, 19, 128, 64, 1024, 132), (2, 32, 16, 32, 128, 132),
+    (1, 3, 2, 16, 64, 132), (1, 19, 1, 13, 37, 132),
+    (1, 19, 37, 50, 7, 132), (8, 19, 256, 256, 2048, 132),
+    (1, 32, 8, 360, 64, 132), (1, 19, 8, 700, 64, 132)])
+def test_kernel_geometry_fits_the_card(b, c, h, w, out_h, sms):
+    """Rows per forward band and (k, rows per pass) of the backward: the
+    shared memory fits one block, a band holds at least 2 source rows where
+    the shape has them, and the forward keeps two blocks per SM where it
+    has the rows."""
+    k, rpp = fc.bwd_geometry(b, c, h, w, sms)
+    assert 1 <= k <= min(h, fc.MAX_BAND_ROWS) and rpp >= 1
+    assert fc.bwd_smem_bytes(c, w, k, rpp) <= fc.SMEM_LIMIT
+    if h >= 2 and fc.bwd_smem_bytes(c, w, 2, 1) <= fc.SMEM_LIMIT:
+        assert k >= 2
+    rows = fc.fwd_rows_per_band(b, out_h, w, sms)
+    assert 1 <= rows <= out_h
+    assert rows == 1 or b * -(-out_h // rows) >= 2 * sms
+
+
+def test_geometry_refuses_a_row_that_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        fc.bwd_geometry(1, 32, 8, 1000, 132)
 
 
 def test_training_after_validation_reuses_the_cached_taps():
@@ -200,3 +312,36 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load_library("fused_ce")
+
+
+class _FakeLibrary:
+    """The launchers' symbols of a built csrc/fused_ce.cu, with its
+    geometry shifted by ``threads`` and ``smem``."""
+
+    def __init__(self, threads=0, smem=0):
+        for name in ("fused_ce_fwd_f32", "fused_ce_fwd_bf16",
+                     "fused_ce_bwd_f32", "fused_ce_bwd_bf16"):
+            setattr(self, name, lambda *a: 0)
+        self.fused_ce_threads = lambda: fc.THREADS + threads
+        self.fused_ce_bwd_smem_bytes = (
+            lambda *g: fc.bwd_smem_bytes(*g) + smem)
+
+
+@pytest.mark.parametrize("threads,smem,agrees", [
+    (0, 0, True), (32, 0, False), (0, 4, False)])
+def test_library_must_share_the_wrappers_geometry(monkeypatch, threads, smem,
+                                                  agrees):
+    """The wrapper sizes the grids and the shared memory, the source lays
+    them out: a library whose thread count or backward shared-memory
+    layout differs from the wrapper's is refused when it is loaded."""
+    monkeypatch.setattr(fc, "load_library",
+                        lambda name: _FakeLibrary(threads, smem))
+    fc._library.cache_clear()
+    try:
+        if agrees:
+            assert isinstance(fc._library(), _FakeLibrary)
+        else:
+            with pytest.raises(RuntimeError, match="disagree"):
+                fc._library()
+    finally:
+        fc._library.cache_clear()
