@@ -4,11 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline DIR
 
-With ``--baseline``, after the device and build phases, the fused CE
-kernels of the port's version under DIR (an earlier commit's
-``dasemanticsegmentationaml_tpu_torch/``, unpacked with ``git archive``
-into a git-ignored directory) are timed against this checkout's, in turns
-A B B A, and nothing else runs (``compare_baseline``).
+With ``--baseline``, after the device and build phases, the
+upsample+argmax and fused CE kernels of the port's version under DIR (an
+earlier commit's ``dasemanticsegmentationaml_tpu_torch/``, unpacked with
+``git archive`` into a git-ignored directory) are held against this
+checkout's: the earlier upsample+argmax on the kernel phase's cases (its
+disagreements logged), then each kernel and the eval forward or train
+step with it timed in turns A B B A; nothing else runs
+(``compare_baseline``).
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
                   fallback); prints its name and power limit from nvidia-smi.
@@ -17,9 +20,12 @@ A B B A, and nothing else runs (``compare_baseline``).
                   with nvcc for sm_90a, one nvcc each, all at once; prints
                   ptxas.
 3. kernel      -- the fused upsample+argmax kernel against its plain PyTorch
-                  version on the card, bit for bit, on random-normal and
-                  tie-heavy logits in fp32 and bf16, at the main path's shapes
-                  and at odd, identity and one-pixel edge shapes.
+                  version on the card, bit for bit, on random-normal,
+                  tie-heavy and non-finite (NaN, +-inf, an all-NaN pixel)
+                  logits in fp32 and bf16, at the main path's shapes (B = 1
+                  and 2) and at edge shapes (odd sizes, identity, h = 1, one
+                  source or output pixel, downsampling, w = 1, C = 3, 32
+                  and 40, a ragged last band).
 4. ce-kernel   -- the fused upsample+CE forward and backward kernels against
                   their plain version (loss, gradient) in fp32 and bf16, at
                   the train step's three head shapes and at edge shapes
@@ -79,8 +85,10 @@ A B B A, and nothing else runs (``compare_baseline``).
                   the card against the same step on the CPU (TF32 off) and in
                   fp64 on the CPU.
 15. timing     -- CUDA-event times of every kernel and of its plain version
-                  (the CE kernels and their plain version also by their
-                  device time alone, from the profiler's kernel sums),
+                  (the upsample+argmax and CE kernels and their plain
+                  version also by their device time alone, from the
+                  profiler's kernel sums; upsample+argmax beside its bound
+                  and its issue floor),
                   features + argmax kernel throughput, the bf16 train step at
                   batch 8 with the CE kernel and with its plain version (turns
                   A B B A, peak memory), the bf16 DA step at batch 8, the
@@ -95,12 +103,13 @@ version's and, where one PyTorch call computes the same function, that
 call's (``library_ms``), beside its bound (``bound_ms``: the larger of its
 bytes over 3.35 TB/s and its operations over their peak rate, from this
 run's shapes; ``bound_by`` says which). Every ``ms`` there is a chain of
-calls timed by CUDA events, the host path included; the CE kernels add
-their device time alone and their plain version's (``device_ms``,
-``plain_device_ms``). The last line is ``{"ok": true, "device": {...}}``.
+calls timed by CUDA events, the host path included; the upsample+argmax
+and CE kernels add their device time alone and their plain version's
+(``device_ms``, ``plain_device_ms``). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
+import functools
 import json
 import math
 import os
@@ -131,6 +140,14 @@ BOUNCE_SLOTS = 8
 #: kernels, the backward's band and edge kernels (an earlier version's
 #: ce_*_rows ones too)
 CE_KERNELS = {"fwd": ("ce_fwd",), "bwd": ("ce_bwd",)}
+#: the upsample+argmax shapes timed: the CLI's eval batch of 1, batch 8
+#: (512x1024 input) and the kernels' JSON line's shape (the CLI's
+#: faithful-resize shape)
+ARGMAX_TIMED = (((1, 19, 64, 128), (512, 1024)),
+                ((8, 19, 64, 128), (512, 1024)),
+                ((2, 19, 128, 64), (1024, 512)))
+#: the upsample+argmax kernel's name in a profile (an earlier version's too)
+ARGMAX_KERNELS = ("upsample_argmax",)
 #: the module name under which --baseline imports another version
 BASELINE = "baseline_torch_port"
 #: an H100 SXM (NVIDIA's data sheet, dense): operations/s by type, fp32
@@ -234,8 +251,8 @@ def ce_calls(fn, x, labels, out_hw):
     return fwd, bwd
 
 
-def load_baseline(root):
-    """``ops/cuda/fused_ce`` of another version of the port, the package
+def load_baseline(root, module):
+    """``ops/cuda/<module>`` of another version of the port, the package
     ``dasemanticsegmentationaml_tpu_torch/`` under ``root`` (an earlier
     commit unpacked with ``git archive``), imported under its own name
     ``baseline_torch_port``: its imports are relative, so its modules,
@@ -252,10 +269,10 @@ def load_baseline(root):
     if BASELINE not in sys.modules:
         spec = importlib.util.spec_from_file_location(
             BASELINE, init, submodule_search_locations=[pkg])
-        module = importlib.util.module_from_spec(spec)
-        sys.modules[BASELINE] = module
-        spec.loader.exec_module(module)
-    return importlib.import_module(f"{BASELINE}.ops.cuda.fused_ce")
+        module_ = importlib.util.module_from_spec(spec)
+        sys.modules[BASELINE] = module_
+        spec.loader.exec_module(module_)
+    return importlib.import_module(f"{BASELINE}.ops.cuda.{module}")
 
 
 def roofline(nbytes, ops):
@@ -271,53 +288,96 @@ def roofline(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def logits_on(device, shape, seed, tie_heavy, dtype):
+def nonfinite(x):
+    """NaN, +inf and -inf at set places, one source pixel all NaN and one
+    all -inf (in place; ``x`` is (B, C, h, w) float32)."""
+    b, c, h, w = x.shape
+    x[0, min(3, c - 1), h // 2, w // 3] = np.nan
+    x[-1, c // 2, 0, w - 1] = np.inf
+    x[0, c - 1, h - 1, 0] = -np.inf
+    x[-1, :, h - 1, w // 2] = np.nan
+    x[0, :, 0, w // 2] = -np.inf
+    return x
+
+
+def logits_on(device, shape, seed, kind, dtype):
+    """Random-normal logits; "ties": small integers, so exact ties between
+    classes are common; "nonfinite": with NaN and infs at set places."""
     import torch
 
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    if tie_heavy:  # small integers: exact ties between classes are common
+    if kind == "ties":
         x = np.round(x * 4).astype(np.float32)
+    elif kind == "nonfinite":
+        x = nonfinite(x)
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
-def phase_kernel(device):
+#: (logits shape, output size) of the upsample+argmax cases: the main
+#: path's shapes, then the shapes a column-segment plan can get wrong
+KERNEL_CASES = (
+    ((2, 19, 64, 128), (512, 1024)),   # 512x1024 input
+    ((2, 19, 128, 64), (1024, 512)),   # the CLI's faithful-resize shape
+    ((1, 19, 64, 128), (512, 1024)),   # B = 1, the CLI's eval batch
+    ((1, 19, 7, 13), (37, 50)),        # odd sizes, no multiple of 8
+    ((2, 19, 64, 128), (64, 128)),     # identity
+    ((1, 19, 1, 13), (37, 50)),        # h = 1
+    ((1, 19, 1, 1), (3, 5)),           # one source pixel
+    ((3, 19, 5, 9), (1, 1)),           # one output pixel
+    ((1, 19, 37, 50), (7, 13)),        # downsampling: empty segments
+    ((1, 19, 5, 1), (9, 7)),           # w = 1: one segment a row
+    ((2, 3, 16, 32), (128, 256)),      # C = 3, the generic instance
+    ((2, 32, 16, 32), (128, 256)),     # C = 32, one generic chunk
+    ((1, 40, 9, 11), (45, 61)),        # C = 40, two chunks
+    ((2, 19, 13, 16), (100, 120)),     # ragged last band
+    ((1, 19, 3, 1000), (5, 1100)),     # w > 256: one row a band
+    ((1, 19, 2, 8), (2, 12500)),       # rows too wide to stage: stored straight
+)
+KINDS = ("normal", "ties", "nonfinite")
+
+
+def kernel_cases(device, ua):
+    """``ua.upsample_argmax`` (the module of this checkout or of another
+    version) against this checkout's plain version on every case of
+    ``KERNEL_CASES`` x fp32, bf16 x ``KINDS``: (cases, the ones that
+    differ with their share of differing pixels, launches counted, the
+    largest |label - plain label|)."""
     import torch
 
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax
 
-    cases = [  # (logits shape, output size)
-        ((2, 19, 64, 128), (512, 1024)),   # 512x1024 input
-        ((2, 19, 128, 64), (1024, 512)),   # the CLI's faithful-resize shape
-        ((1, 19, 7, 13), (37, 50)),        # odd sizes, no multiple of 8
-        ((2, 19, 64, 128), (64, 128)),     # identity
-        ((1, 19, 1, 13), (37, 50)),        # h = 1
-        ((1, 19, 1, 1), (3, 5)),           # one source pixel
-        ((3, 19, 5, 9), (1, 1)),           # one output pixel
-    ]
     before = ua.LAUNCHES
-    max_err = 0.0
-    n = 0
-    for shape, out_hw in cases:
+    bad = []
+    n, max_err = 0, 0
+    for shape, out_hw in KERNEL_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            for tie_heavy in (False, True):
-                x = logits_on(device, shape, n, tie_heavy, dtype)
+            for kind in KINDS:
+                x = logits_on(device, shape, n, kind, dtype)
                 got = ua.upsample_argmax(x, out_hw)
-                want = ua.upsample_argmax_reference(x, out_hw)
+                want = upsample_argmax.upsample_argmax_reference(x, out_hw)
                 torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                max_err = max(max_err, float(err))
-                mism = (got != want).float().mean().item()
                 check(got.shape == (shape[0], *out_hw)
                       and got.dtype == torch.int32, f"bad output {got.shape}")
-                check(torch.equal(got, want),
-                      f"kernel != plain at {shape}->{out_hw} {dtype} "
-                      f"tie_heavy={tie_heavy}: mismatch {mism}")
+                max_err = max(max_err, (got - want).abs().max().item())
+                if not torch.equal(got, want):
+                    bad.append((shape, out_hw, str(dtype), kind,
+                                (got != want).float().mean().item()))
                 n += 1
-    check(ua.LAUNCHES - before == n,
-          f"LAUNCHES rose by {ua.LAUNCHES - before}, expected {n}")
+    return n, bad, ua.LAUNCHES - before, max_err
+
+
+def phase_kernel(device):
+    """The upsample+argmax kernel bit for bit against its plain version
+    (torch.argmax: the first NaN, otherwise the first of the largest) on
+    every case; its counter rises by each call."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+
+    n, bad, launches, max_err = kernel_cases(device, ua)
+    check(not bad, f"kernel != plain on {len(bad)} of {n} cases: {bad}")
+    check(launches == n, f"LAUNCHES rose by {launches}, expected {n}")
     log("kernel", f"{n} cases bit-identical to the plain version "
-        f"(fp32+bf16, random-normal+tie-heavy); max |kernel-plain| = "
-        f"{max_err}; LAUNCHES +{n}")
+        f"(fp32+bf16, random-normal+tie-heavy+non-finite); max "
+        f"|kernel-plain| = {max_err}; LAUNCHES +{n}")
     return max_err
 
 
@@ -384,7 +444,7 @@ def phase_ce_kernel(device):
     for n, (shape, out_hw, mode) in enumerate(cases):
         labels = ce_labels(device, (shape[0], *out_hw), n, mode, shape[1])
         for dtype in (torch.float32, torch.bfloat16):
-            x = logits_on(device, shape, n, False, dtype)
+            x = logits_on(device, shape, n, "normal", dtype)
             loss, grad = ce_value_and_grad(fc.cross_entropy_upsampled, x,
                                            labels, out_hw)
             loss2, grad2 = ce_value_and_grad(fc.cross_entropy_upsampled, x,
@@ -1434,27 +1494,9 @@ def phase_timing(device, model, card):
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
     from dasemanticsegmentationaml_tpu_torch.train.evaluate import predict
 
-    times = {}
-    for shape, out_hw in (((2, 19, 128, 64), (1024, 512)),
-                          ((2, 19, 64, 128), (512, 1024)),
-                          ((8, 19, 64, 128), (512, 1024))):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = logits_on(device, shape, 0, False, dtype)
-            plain_a = cuda_ms(lambda: ua.upsample_argmax_reference(x, out_hw), 10)
-            kern_a = cuda_ms(lambda: ua.upsample_argmax(x, out_hw), 100)
-            kern_b = cuda_ms(lambda: ua.upsample_argmax(x, out_hw), 100)
-            plain_b = cuda_ms(lambda: ua.upsample_argmax_reference(x, out_hw), 10)
-            kern, plain = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
-            name = str(dtype).replace("torch.", "")
-            times[(shape, name)] = (kern, plain)
-            out_mb = shape[0] * out_hw[0] * out_hw[1] * 4 / 1e6
-            log("timing", f"upsample_argmax {shape}->{out_hw} {name}: kernel "
-                f"{kern:.4f} ms ({kern_a:.4f}, {kern_b:.4f}), plain "
-                f"{plain:.4f} ms ({plain_a:.4f}, {plain_b:.4f}); "
-                f"{out_mb / kern:.1f} GB/s of int32 output | {card}")
+    times = {"argmax": time_argmax(device, card)}
 
     # the CLI's layout (NCHW) against channels_last, in turns A B B A
     rng = np.random.default_rng(1)
@@ -1539,7 +1581,92 @@ def profile_eval(model, x, card):
         with torch.inference_mode():
             predict(model, x, True, torch.bfloat16)
 
-    profile_steps(run_one, "features + kernel, bf16, batch 8 (eval)", card)
+    profile_steps(run_one, "features + kernel, bf16, batch 8 (eval)", card,
+                  watch=ARGMAX_KERNELS)
+
+
+def time_argmax(device, card, fns=None):
+    """Two versions of upsample_argmax, A and B (``fns``, in that order;
+    by default the plain version and the kernel), at ``ARGMAX_TIMED`` in
+    bf16 and fp32, in turns A B B A: by the chain (``cuda_ms``: the
+    wrapper's host path included) and by device time alone
+    (``device_ms``: the kernel's profiler sums; every kernel of the plain
+    version). Returns, per (shape, dtype), the means by name and by
+    (name, "device")."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+
+    fns = fns or {"plain": ua.upsample_argmax_reference,
+                  "kernel": ua.upsample_argmax}
+    a, b = fns
+    times = {}
+    for shape, out_hw in ARGMAX_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = logits_on(device, shape, 0, "normal", dtype)
+            res = {}
+            for name in (a, b, b, a):
+                plain = name == "plain"
+                call = functools.partial(fns[name], x, out_hw)
+                res.setdefault(name, []).append(
+                    cuda_ms(call, 10 if plain else 100))
+                ms, _ = device_ms(call, None if plain else ARGMAX_KERNELS,
+                                  n=5 if plain else 20)
+                res.setdefault((name, "device"), []).append(ms)
+            mean = {k: sum(v) / len(v) for k, v in res.items()}
+            tag = str(dtype).replace("torch.", "")
+            times[(shape, tag)] = mean
+            bound = bound_upsample_argmax(shape, out_hw, x.element_size())
+            log("timing", f"upsample_argmax {shape}->{out_hw} {tag}, turns "
+                f"{a} {b} {b} {a}: " + "; ".join(
+                    f"{name} device {mean[(name, 'device')]:.4f} ms "
+                    f"{[round(t, 4) for t in res[(name, 'device')]]}, chain "
+                    f"{mean[name]:.4f} ms {[round(t, 4) for t in res[name]]}"
+                    for name in (a, b)) + f"; bound {bound[0]:.4f} ms "
+                f"({bound[1]}), issue floor "
+                f"{issue_floor_upsample_argmax(shape, out_hw):.4f} ms | {card}")
+    return times
+
+
+def time_eval(device, card, fns):
+    """The eval forward (features + upsample_argmax, bf16 autocast, batch 8,
+    512x1024, as ``train/evaluate.py::predict``) with each of two versions
+    of upsample_argmax, A and B (``fns``, in that order), in turns A B B A;
+    then a profiler pass of each: device busy share and the kernel's share
+    of device time."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import build_bisenet
+
+    model = build_bisenet(19, device=device,
+                          generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(1)
+    x, _ = prepare_batch(rng.integers(0, 256, (8, 512, 1024, 3),
+                                      dtype=np.uint8),
+                         np.zeros((8, 512, 1024), np.uint8), device=device,
+                         dtype=torch.bfloat16)
+
+    def forward(fn):
+        with torch.inference_mode():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                feat = model.features(x)[0]
+            fn(feat.contiguous(), x.shape[2:])
+
+    a, b = fns
+    runs = {}
+    for name in (a, b, b, a):
+        runs.setdefault(name, []).append(
+            cuda_ms(lambda: forward(fns[name]), 20))
+    for name, ms in runs.items():
+        log("timing", f"eval forward (features + upsample_argmax {name}), "
+            f"bf16, batch 8, 512x1024: mean {sum(ms) / len(ms):.3f} ms/batch "
+            f"{[round(t, 3) for t in ms]} = "
+            f"{8000.0 * len(ms) / sum(ms):.1f} images/s | {card}")
+    for name in fns:
+        profile_steps(lambda: forward(fns[name]),
+                      f"eval forward with upsample_argmax {name}, bf16, "
+                      f"batch 8", card, watch=ARGMAX_KERNELS)
 
 
 def time_ce(device, card, fns=None):
@@ -1561,7 +1688,7 @@ def time_ce(device, card, fns=None):
     for shape, out_hw in CE_MAIN_CASES[1:]:
         labels = ce_labels(device, (shape[0], *out_hw), 0, "mixed")
         for dtype in (torch.bfloat16, torch.float32):
-            x = logits_on(device, shape, 0, False, dtype).requires_grad_()
+            x = logits_on(device, shape, 0, "normal", dtype).requires_grad_()
             calls = {name: dict(zip(("fwd", "bwd"),
                                     ce_calls(fn, x, labels, out_hw)))
                      for name, fn in fns.items()}
@@ -1670,6 +1797,21 @@ def bound_upsample_argmax(shape, out_hw, elem):
                              + 4 * c * px})
 
 
+def issue_floor_upsample_argmax(shape, out_hw):
+    """The least time the card could issue csrc/upsample_argmax.cu's
+    instructions in, beside ``bound_upsample_argmax``: per output pixel
+    and class the column pass (3) and the running argmax's compare and two
+    selects (3); per column segment of an output row and class 4 loads,
+    the row pass (3 a column, 6) and the finiteness test (2). None is an
+    FMA, so they issue at one a lane and clock: half the fp32 peak's rate,
+    which counts an FMA as two operations."""
+    b, c, h, w = shape
+    px = b * out_hw[0] * out_hw[1]
+    segments = b * out_hw[0] * min(w, out_hw[1])
+    lane_instructions = 6 * c * px + 12 * c * segments
+    return lane_instructions / (PEAK_OPS_PER_S["fp32"] / 2) * 1e3
+
+
 def bound_ce(shape, out_hw, elem, n_valid, backward):
     """Bound of one fused CE call on ``n_valid`` labelled pixels (the
     others add nothing to the loss or the gradient). Both directions read
@@ -1723,18 +1865,32 @@ def kernel_record(name, source, replaces, launches, max_err, ms, plain_ms,
 
 
 def compare_baseline(device, card, root):
-    """``--baseline DIR``: the CE kernels of another version of the port
-    (A, ``load_baseline``) against this checkout's (B) on this card, in one
-    process: ``time_ce``'s device and chain times in turns A B B A, then
-    the bf16 train step with each (``time_train_step``) and its CE kernels'
-    share of device time."""
+    """``--baseline DIR``: the kernels of another version of the port (A,
+    ``load_baseline``) against this checkout's (B) on this card, in one
+    process. First the other upsample_argmax on ``kernel_cases`` (the
+    cases it gets wrong are logged, not failed); then upsample_argmax by
+    device and chain time in turns A B B A (``time_argmax``) and the eval
+    forward with each (``time_eval``); then the CE kernels likewise
+    (``time_ce``) and the bf16 train step with each (``time_train_step``)
+    and its CE kernels' share of device time."""
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
-    base = load_baseline(root)
-    base._library()
+    base_ua = load_baseline(root, "upsample_argmax")
+    base_fc = load_baseline(root, "fused_ce")
+    base_ua._library()
+    base_fc._library()
     log("baseline", f"A = baseline, the package under {root}; B = kernel, "
         f"this checkout | {card}")
-    fns = {"baseline": base.cross_entropy_upsampled,
+    n, bad, _, _ = kernel_cases(device, base_ua)
+    log("baseline", f"the baseline's upsample_argmax differs from the plain "
+        f"version on {len(bad)} of {n} cases" + "".join(
+            f"\n  {case}" for case in bad))
+    argmax = {"baseline": base_ua.upsample_argmax,
+              "kernel": ua.upsample_argmax}
+    time_argmax(device, card, argmax)
+    time_eval(device, card, argmax)
+    fns = {"baseline": base_fc.cross_entropy_upsampled,
            "kernel": fc.cross_entropy_upsampled}
     time_ce(device, card, fns)
     time_train_step(device, card, fns)
@@ -1750,8 +1906,9 @@ def main(argv=None):
         description="Drive the PyTorch port on one CUDA card, phase by phase.")
     parser.add_argument(
         "--baseline", metavar="DIR",
-        help="instead of the phases, time the CE kernels against those of "
-             "the version of dasemanticsegmentationaml_tpu_torch/ under DIR")
+        help="instead of the phases, hold the upsample+argmax and CE kernels "
+             "against those of the version of "
+             "dasemanticsegmentationaml_tpu_torch/ under DIR")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1812,7 +1969,7 @@ def main(argv=None):
     stdc_times = time_stdc(device, backbone, folded, h, card)
     time_da_step(device, card)
 
-    kern, plain = times[((2, 19, 128, 64), "bfloat16")]
+    argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
     ce_shape, ce_hw = CE_MAIN_CASES[0]
     ce = times["ce"][(ce_shape, "bfloat16")]
     labels = ce_labels("cpu", (ce_shape[0], *ce_hw), 0, "mixed")
@@ -1840,8 +1997,11 @@ def main(argv=None):
         f" | {card}")
     print(json.dumps({"kernels": [
         kernel_record("upsample_argmax", KERNEL_SOURCE, KERNEL_REPLACES,
-                      eval_launches, max_err, kern, plain,
-                      bound_upsample_argmax((2, 19, 128, 64), (1024, 512), 2))
+                      eval_launches, max_err, argmax["kernel"],
+                      argmax["plain"],
+                      bound_upsample_argmax((2, 19, 128, 64), (1024, 512), 2),
+                      device_ms=argmax[("kernel", "device")],
+                      plain_device_ms=argmax[("plain", "device")])
         ] + [
         kernel_record(f"fused_ce_{part}", CE_SOURCE, CE_REPLACES,
                       train_launches[f"fused_ce_{part}"],

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..losses import cross_entropy_ignore
-from ..resize import _align_corners_taps, taps_on, upsample_two_tap
+from ..resize import _align_corners_taps, ranges_on, taps_on, upsample_two_tap
 from .build import check_launch, current_stream, load_library, sm_count
 
 #: kernel launches made by ``cross_entropy_upsampled``'s forward and its
@@ -77,20 +77,6 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError("csrc/fused_ce.cu and ops/cuda/fused_ce.py "
                            "disagree on THREADS or bwd_smem_bytes")
     return lib
-
-
-def tap_ranges(in_size: int, out_size: int) -> np.ndarray:
-    """(in_size, 4) int32: for each source index j, [start, end) of the
-    output indices whose ``lo`` tap is j, then of those whose ``hi`` tap is
-    j. The taps are monotone, so each set is one contiguous range: the
-    kernels give the x of the first range to one thread (a column
-    segment, whose hi tap is one column)."""
-    lo, hi, _ = _align_corners_taps(in_size, out_size)
-    j = np.arange(in_size)
-    return np.stack([np.searchsorted(lo, j, "left"),
-                     np.searchsorted(lo, j, "right"),
-                     np.searchsorted(hi, j, "left"),
-                     np.searchsorted(hi, j, "right")], 1).astype(np.int32)
 
 
 def band_rows(in_size: int, out_size: int, k: int) -> np.ndarray:
@@ -145,12 +131,6 @@ def bwd_geometry(b: int, c: int, h: int, w: int, sms: int
 
 
 @functools.lru_cache(maxsize=64)
-def _ranges_on(in_size: int, out_size: int, device: torch.device):
-    with torch.inference_mode(False):
-        return torch.from_numpy(tap_ranges(in_size, out_size)).to(device)
-
-
-@functools.lru_cache(maxsize=64)
 def _bands_on(in_size: int, out_size: int, k: int, device: torch.device):
     with torch.inference_mode(False):
         return torch.from_numpy(band_rows(in_size, out_size, k)).to(device)
@@ -178,7 +158,7 @@ class _FusedCE(torch.autograd.Function):
         dev = logits.device
         lo_y, hi_y, ty = taps_on(h, out_h, dev)
         _, hi_x, tx = taps_on(w, out_w, dev)
-        xr = _ranges_on(w, out_w, dev)
+        xr = ranges_on(w, out_w, dev)
         rows = fwd_rows_per_band(b, out_h, w, sm_count(dev.index))
         n_parts = b * -(-out_h // rows)
         part_sum = torch.empty(n_parts, dtype=torch.float32, device=dev)
@@ -211,7 +191,7 @@ class _FusedCE(torch.autograd.Function):
         dev = logits.device
         lo_y, hi_y, ty = taps_on(h, out_h, dev)
         _, hi_x, tx = taps_on(w, out_w, dev)
-        xr = _ranges_on(w, out_w, dev)
+        xr = ranges_on(w, out_w, dev)
         k, rpp = bwd_geometry(b, c, h, w, sm_count(dev.index))
         bands = _bands_on(h, out_h, k, dev)
         n_bands = bands.numel() - 1

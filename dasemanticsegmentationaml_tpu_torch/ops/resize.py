@@ -15,7 +15,8 @@ TPU (resize.py:58-94); in PyTorch they are native:
 ``_align_corners_taps`` is copied verbatim from the JAX module
 (resize.py:31-46): the fused kernels (upsample+argmax, upsample+CE) and
 their plain versions take their taps from it, so all interpolate with the
-same numbers as JAX. ``upsample_two_tap`` is that plain interpolation.
+same numbers as JAX. ``upsample_two_tap`` is that plain interpolation;
+``tap_ranges`` is the kernels' plan of column segments.
 """
 
 from __future__ import annotations
@@ -57,6 +58,28 @@ def taps_on(in_size: int, out_size: int, device: torch.device):
     lo, hi, t = _align_corners_taps(in_size, out_size)
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(a).to(device) for a in (lo, hi, t))
+
+
+def tap_ranges(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, 4) int32: for each source index j, [start, end) of the
+    output indices whose ``lo`` tap is j, then of those whose ``hi`` tap is
+    j. The taps are monotone, so each set is one contiguous range: the
+    fused kernels give the x of the first range to one thread (a column
+    segment, whose hi tap is one column)."""
+    lo, hi, _ = _align_corners_taps(in_size, out_size)
+    j = np.arange(in_size)
+    return np.stack([np.searchsorted(lo, j, "left"),
+                     np.searchsorted(lo, j, "right"),
+                     np.searchsorted(hi, j, "left"),
+                     np.searchsorted(hi, j, "right")], 1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def ranges_on(in_size: int, out_size: int, device: torch.device):
+    """``tap_ranges`` as an int32 tensor on ``device`` (made outside
+    inference mode, as ``taps_on``)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(tap_ranges(in_size, out_size)).to(device)
 
 
 def upsample_two_tap(logits: torch.Tensor,

@@ -1,6 +1,6 @@
 """``chip_smoke.py --baseline`` on the CPU: the loader of the version
-compared against, the forward and backward calls it times, and the
-refusal to run without a card."""
+compared against (its CE and upsample+argmax modules), the CE forward
+and backward calls it times, and the refusal to run without a card."""
 
 import importlib.util
 import os
@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce
+from dasemanticsegmentationaml_tpu_torch.ops.cuda import (fused_ce,
+                                                           upsample_argmax)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,24 +37,30 @@ def _inputs(shape, out_hw, dtype):
 
 
 def test_baseline_is_a_second_copy_of_the_package():
-    """The baseline is imported under its own name: its module, counters
-    and caches are not this checkout's, and on the CPU it computes what
+    """The baseline is imported under its own name: its modules, counters
+    and caches are not this checkout's, and on the CPU they compute what
     this checkout does."""
-    base = chip_smoke.load_baseline(REPO)
+    base = chip_smoke.load_baseline(REPO, "fused_ce")
     assert base is not fused_ce
     assert base.__name__ == "baseline_torch_port.ops.cuda.fused_ce"
     assert os.path.samefile(base.__file__, fused_ce.__file__)
     assert base.cross_entropy_upsampled is not fused_ce.cross_entropy_upsampled
-    assert chip_smoke.load_baseline(REPO) is base
+    assert chip_smoke.load_baseline(REPO, "fused_ce") is base
     x, labels = _inputs((2, 3, 4, 5), (7, 9), torch.float32)
     assert torch.equal(base.cross_entropy_upsampled(x, labels, (7, 9)),
                        fused_ce.cross_entropy_upsampled(x, labels, (7, 9)))
+    base_ua = chip_smoke.load_baseline(REPO, "upsample_argmax")
+    assert base_ua.__name__ == "baseline_torch_port.ops.cuda.upsample_argmax"
+    assert base_ua.upsample_argmax is not upsample_argmax.upsample_argmax
+    logits = x.detach()
+    assert torch.equal(base_ua.upsample_argmax(logits, (7, 9)),
+                       upsample_argmax.upsample_argmax(logits, (7, 9)))
 
 
 def test_baseline_that_is_missing_raises(tmp_path, monkeypatch):
     monkeypatch.delitem(sys.modules, chip_smoke.BASELINE, raising=False)
     with pytest.raises(FileNotFoundError, match="no package"):
-        chip_smoke.load_baseline(str(tmp_path))
+        chip_smoke.load_baseline(str(tmp_path), "fused_ce")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

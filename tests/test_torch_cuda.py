@@ -24,26 +24,53 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _logits(device, shape, seed, tie_heavy, dtype):
+def _nonfinite(x):
+    """NaN, +inf and -inf at set places, one source pixel all NaN and one
+    all -inf (as tests/test_torch_upsample_argmax_plan.py::nonfinite)."""
+    b, c, h, w = x.shape
+    x[0, min(3, c - 1), h // 2, w // 3] = np.nan
+    x[-1, c // 2, 0, w - 1] = np.inf
+    x[0, c - 1, h - 1, 0] = -np.inf
+    x[-1, :, h - 1, w // 2] = np.nan
+    x[0, :, 0, w // 2] = -np.inf
+    return x
+
+
+def _logits(device, shape, seed, kind, dtype):
+    """Random-normal logits; "ties": rounded to quarters, so classes tie;
+    "nonfinite": with NaN and infs at set places."""
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    if tie_heavy:
+    if kind == "ties":
         x = np.round(x * 4).astype(np.float32)
+    elif kind == "nonfinite":
+        x = _nonfinite(x)
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tie_heavy", [False, True])
+@pytest.mark.parametrize("kind", ["normal", "ties", "nonfinite"])
 @pytest.mark.parametrize("shape,out_hw", [
     ((2, 19, 64, 128), (512, 1024)),
     ((1, 19, 7, 13), (37, 50)),
     ((2, 19, 64, 128), (64, 128)),
     ((1, 19, 1, 13), (37, 50)),
     ((2, 3, 1, 1), (4, 4)),
+    ((1, 19, 64, 128), (512, 1024)),   # B = 1, the CLI's eval batch
+    ((1, 19, 37, 50), (7, 13)),        # downsampling: empty segments
+    ((1, 19, 5, 1), (9, 7)),           # w = 1: one segment a row
+    ((2, 3, 16, 32), (128, 256)),      # C = 3, the generic instance
+    ((2, 32, 16, 32), (128, 256)),     # C = 32, one generic chunk
+    ((1, 40, 9, 11), (45, 61)),        # C = 40, two chunks
+    ((2, 19, 13, 16), (100, 120)),     # ragged last band
+    ((1, 19, 3, 1000), (5, 1100)),     # w > 256: one row a band
+    ((1, 19, 2, 8), (2, 12500)),       # rows too wide to stage: stored straight
 ])
-def test_kernel_equals_plain_version(cuda_device, shape, out_hw, tie_heavy,
+def test_kernel_equals_plain_version(cuda_device, shape, out_hw, kind,
                                      dtype):
-    x = _logits(cuda_device, shape, 0, tie_heavy, dtype)
+    """Bit-identical to the plain version (torch.argmax: the first NaN,
+    otherwise the first of the largest); one launch a call."""
+    x = _logits(cuda_device, shape, 0, kind, dtype)
     before = ua.LAUNCHES
     got = ua.upsample_argmax(x, out_hw)
     torch.cuda.synchronize()
@@ -101,7 +128,7 @@ def test_fused_ce_equals_plain_version(cuda_device, shape, out_hw,
     """Loss within 1e-5 of |loss|; gradient within 1e-4 of its max, plus
     one bf16 ulp (at most 2^-7 |grad|) for bf16 gradients; a second run
     bit-identical; one launch of each kernel per call."""
-    x = _logits(cuda_device, shape, 0, False, dtype)
+    x = _logits(cuda_device, shape, 0, "normal", dtype)
     labels = _ce_labels(cuda_device, (shape[0], *out_hw), 1, all_ignored,
                         shape[1])
     before = (fc.FWD_LAUNCHES, fc.BWD_LAUNCHES)

@@ -19,7 +19,7 @@ import torch
 
 from dasemanticsegmentationaml_tpu.ops import losses as jax_losses
 from dasemanticsegmentationaml_tpu.ops.pallas import fused_ce as jax_fc
-from dasemanticsegmentationaml_tpu_torch.ops import losses
+from dasemanticsegmentationaml_tpu_torch.ops import losses, resize
 from dasemanticsegmentationaml_tpu_torch.ops.cuda import build
 from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
 from dasemanticsegmentationaml_tpu_torch.ops.resize import _align_corners_taps
@@ -142,7 +142,7 @@ def test_tap_ranges_gather_the_tap_matrix(in_size, out_size):
     is the transpose of the forward's taps."""
     _, _, t = _align_corners_taps(in_size, out_size)
     dense = _tap_matrix(in_size, out_size)
-    r = fc.tap_ranges(in_size, out_size)
+    r = resize.tap_ranges(in_size, out_size)
     assert r.shape == (in_size, 4) and r.dtype == np.int32
     gathered = np.zeros_like(dense)
     for j in range(in_size):
@@ -168,7 +168,7 @@ def _band_backward(p, h, w, k):
     b, c, out_h, out_w = p.shape
     lo_y, hi_y, ty = _align_corners_taps(h, out_h)
     _, hi_x, tx = _align_corners_taps(w, out_w)
-    xr = fc.tap_ranges(w, out_w)
+    xr = resize.tap_ranges(w, out_w)
     plan = fc.band_rows(h, out_h, k)
     n_bands = len(plan) - 1
     dx = np.full((b, c, h, w), np.nan)
@@ -227,7 +227,7 @@ def test_band_plan_gathers_the_tap_matrices(h, w, out_hw, k):
     plan = fc.band_rows(h, out_h, k)
     assert plan.dtype == np.int32 and len(plan) == -(-h // k) + 1
     assert plan[0] == 0 and plan[-1] == out_h and (np.diff(plan) >= 0).all()
-    xr = fc.tap_ranges(w, out_w)
+    xr = resize.tap_ranges(w, out_w)
     assert xr[0, 0] == 0 and xr[-1, 1] == out_w
     assert (xr[1:, 0] == xr[:-1, 1]).all()
     rng = np.random.default_rng(h * 1000 + w)
