@@ -5,12 +5,13 @@
     python3 chip_smoke.py --baseline DIR
 
 With ``--baseline``, after the device and build phases, the
-upsample+argmax and fused CE kernels of the port's version under DIR (an
-earlier commit's ``dasemanticsegmentationaml_tpu_torch/``, unpacked with
-``git archive`` into a git-ignored directory) are held against this
-checkout's: the earlier upsample+argmax on the kernel phase's cases (its
-disagreements logged), then each kernel and the eval forward or train
-step with it timed in turns A B B A; nothing else runs
+upsample+argmax, fused CE and fused CatBottleneck kernels of the port's
+version under DIR (an earlier commit's
+``dasemanticsegmentationaml_tpu_torch/``, unpacked with ``git archive``
+into a git-ignored directory) are held against this checkout's: the
+earlier upsample+argmax on the kernel phase's cases (its disagreements
+logged), then each kernel and the eval forward, train step or
+features[2:8] chain with it timed in turns A B B A; nothing else runs
 (``compare_baseline``).
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
@@ -85,10 +86,12 @@ step with it timed in turns A B B A; nothing else runs
                   the card against the same step on the CPU (TF32 off) and in
                   fp64 on the CPU.
 15. timing     -- CUDA-event times of every kernel and of its plain version
-                  (the upsample+argmax and CE kernels and their plain
-                  version also by their device time alone, from the
-                  profiler's kernel sums; upsample+argmax beside its bound
-                  and its issue floor),
+                  (the upsample+argmax, CE and CatBottleneck kernels and
+                  their plain version also by their device time alone,
+                  from the profiler's kernel sums; upsample+argmax beside
+                  its bound and its issue floor; each CatBottleneck beside
+                  the eager cuDNN module, with the device time of each
+                  phase of its launch and the GMAC its plan does),
                   features + argmax kernel throughput, the bf16 train step at
                   batch 8 with the CE kernel and with its plain version (turns
                   A B B A, peak memory), the bf16 DA step at batch 8, the
@@ -103,9 +106,11 @@ version's and, where one PyTorch call computes the same function, that
 call's (``library_ms``), beside its bound (``bound_ms``: the larger of its
 bytes over 3.35 TB/s and its operations over their peak rate, from this
 run's shapes; ``bound_by`` says which). Every ``ms`` there is a chain of
-calls timed by CUDA events, the host path included; the upsample+argmax
-and CE kernels add their device time alone and their plain version's
-(``device_ms``, ``plain_device_ms``). The last line is ``{"ok": true, "device": {...}}``.
+calls timed by CUDA events, the host path included; the upsample+argmax,
+CE and CatBottleneck kernels add their device time alone and their plain
+version's (``device_ms``, ``plain_device_ms``), the CatBottleneck the
+eager cuDNN modules' too (``eager_ms``, ``eager_device_ms``: no one
+PyTorch call computes a CatBottleneck, so ``library_ms`` stays null). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -148,6 +153,8 @@ ARGMAX_TIMED = (((1, 19, 64, 128), (512, 1024)),
                 ((2, 19, 128, 64), (1024, 512)))
 #: the upsample+argmax kernel's name in a profile (an earlier version's too)
 ARGMAX_KERNELS = ("upsample_argmax",)
+#: the fused CatBottleneck's kernels in a profile (an earlier version's too)
+STDC_KERNELS = ("fused_cat",)
 #: the module name under which --baseline imports another version
 BASELINE = "baseline_torch_port"
 #: an H100 SXM (NVIDIA's data sheet, dense): operations/s by type, fp32
@@ -514,15 +521,43 @@ def seed_cat_block(block, seed):
 def stdc_cases():
     """(name, stride, input (B, C, H, W), (h1, h2, h3, h4)): the six
     bottlenecks at batch 8, then edge shapes: odd H and W at stride 1 and
-    2, H = 2 at stride 2, and a width below one tile."""
+    2, H = 2 at stride 2, a width below one tile, maps that leave a ragged
+    last tile of 64 or 128 pixels both ways (the stride-2 front's x1
+    region always ends in a ragged 64 rows), and out_c = 32 and 64 at both
+    strides, whose (16, 8, 4, 4) and (32, 16, 8, 8) channels lie below the
+    MMA's 64 output and 16 input channels."""
     cases = [(f"features[{i + 2}]", s, (8, *chw), chans)
              for i, (s, chw, chans) in enumerate(STDC813_BOTTLENECKS)]
     b2, b3, b4, b5 = (STDC813_BOTTLENECKS[i][2] for i in range(4))
     cases += [("odd s1", 1, (2, 256, 19, 37), b3),
               ("odd s2", 2, (1, 256, 13, 7), b4),
               ("H=2 s2", 2, (1, 64, 2, 30), b2),
-              ("W=3 s1", 1, (2, 512, 9, 3), b5)]
+              ("W=3 s1", 1, (2, 512, 9, 3), b5),
+              ("ragged s1", 1, (2, 512, 11, 21), b5),
+              ("ragged s2", 2, (1, 256, 29, 45), b4),
+              ("out_c 32 s1", 1, (2, 16, 12, 20), (16, 8, 4, 4)),
+              ("out_c 32 s2", 2, (1, 16, 15, 9), (16, 8, 4, 4)),
+              ("out_c 64 s1", 1, (1, 24, 7, 33), (32, 16, 8, 8)),
+              ("out_c 64 s2", 2, (2, 40, 18, 10), (32, 16, 8, 8))]
     return cases
+
+
+def stdc_plan_text(fs, x, fp):
+    """What the wrapper plans for ``x`` and ``fp`` on this card, in a few
+    words."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda.build import sm_count
+
+    b, c, h, w = x.shape
+    s = fp.stride
+    if x.element_size() == 4:
+        p = fs.plan(s, 4, c, fp.channels, b, (-(-h // s), -(-w // s)),
+                    sm_count(x.device.index))
+        return f"tile {p.th}x{p.tw} chunk {p.chunk} smem {p.smem} B"
+    p = fs.launch_plan(x, fp)
+    tiles = ", ".join(f"{st.th}x{st.tw}" for st in p.stages)
+    dw = f"; avd/pool {p.dw_th}x{p.dw_tw}" if s == 2 else ""
+    return (f"tiles {tiles}{dw}; smem {p.smem} B, {p.blocks_per_sm} blocks "
+            f"an SM, grid {p.grid}")
 
 
 def phase_stdc_kernel(device):
@@ -560,10 +595,8 @@ def phase_stdc_kernel(device):
             peak = want.float().abs().max().item()
             rel = 1e-4 if dtype == torch.float32 else 2e-2
             tag = str(dtype).replace("torch.", "")
-            p = fs.plan(stride, x.element_size(), shape[1], chans, shape[0],
-                        tuple(got.shape[2:]))
-            log("stdc-kernel", f"{name} s{stride} {shape} {tag}: tile "
-                f"{p.th}x{p.tw} chunk {p.chunk} smem {p.smem} B; max|kernel-"
+            log("stdc-kernel", f"{name} s{stride} {shape} {tag}: "
+                f"{stdc_plan_text(fs, x, fp)}; max|kernel-"
                 f"plain| {err:.3e} = {err / max(peak, 1e-30):.3e} of max|plain|"
                 f" {peak:.3e} (bound {rel:g}); rerun bit-identical "
                 f"{torch.equal(got, again)}")
@@ -842,6 +875,19 @@ def seeded_backbone(device):
     return net.to(device).eval()
 
 
+def stdc_input(device, backbone):
+    """features[1]'s fp32 output (TF32 off) on a seeded 8x3x512x1024 batch:
+    the input of features[2:8]."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (8, 3, 512, 1024)).astype(np.float32)).to(device)
+    with torch.inference_mode(), fp32_math():
+        return backbone.features[1](backbone.features[0](x))
+
+
 def phase_stdc_path(device, backbone):
     """The fused bottleneck's path: fold features[2:8] (JAX
     fused_stdc.py:98) and run them as six launches on features[1]'s bf16
@@ -855,11 +901,9 @@ def phase_stdc_path(device, backbone):
     from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
 
-    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
-        (8, 3, 512, 1024)).astype(np.float32)).to(device)
+    x1 = stdc_input(device, backbone)
     with torch.inference_mode():
         with fp32_math():
-            x1 = backbone.features[1](backbone.features[0](x))
             want = backbone.features[2:8](x1)
         folded = [fs.fold_cat_params(b, torch.bfloat16)
                   for b in backbone.features[2:8]]
@@ -889,7 +933,7 @@ def phase_stdc_path(device, backbone):
           f"the path launched {launches}, expected 3 of each")
     check(err <= 5e-2 * peak, "fused chain off the eager fp32 chain")
     check(err_plain <= 2e-2 * peak, "fused chain off the plain chain")
-    return launches, folded, h
+    return launches, h
 
 
 def phase_model(device):
@@ -1388,58 +1432,122 @@ def phase_da_parity(device):
     check(n_frozen >= 7, f"only {n_frozen} frozen leaves")
 
 
-def time_stdc(device, backbone, folded, h, card):
-    """Each bottleneck, kernel against its plain version, in bf16 and fp32
-    (the plain version with TF32 off, as it is checked); then the
-    features[2:8] chain at bf16, batch 8: eager cuDNN modules in eval mode
-    under autocast against the six fused launches. Turns A B B A."""
+def time_stdc(device, backbone, h, card, fns=None):
+    """Two versions of the fused CatBottleneck, A and B (``fns``: name ->
+    (fold, call), in that order; by default the plain version and the
+    kernel), on each of features[2:8] at bf16, batch 8, in turns A B B A: by
+    the chain (``cuda_ms``: the wrapper's host path included) and by device
+    time alone (``device_ms``: the kernel's profiler sums; every kernel of
+    the plain version); beside them the eager cuDNN module (autocast, eval),
+    the yardstick, both ways. By default each bottleneck in fp32 too,
+    kernel against plain (TF32 off, as it is checked). Then the
+    features[2:8] chain on ``h``: the eager modules against each version's
+    six launches (the plain version's excepted), in turns, both ways.
+    Returns, per (bottleneck, dtype) and for "chain", the means by name and
+    by (name, "device")."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+
+    fns = fns or {"plain": (fs.fold_cat_params,
+                            fs.fused_cat_bottleneck_plain),
+                  "kernel": (fs.fold_cat_params, fs.fused_cat_bottleneck)}
+    a, b = fns
+
+    def timed(res, name, call, fused):
+        res.setdefault(name, []).append(cuda_ms(call, 10))
+        ms, _ = device_ms(call, STDC_KERNELS if fused else None, n=10)
+        res.setdefault((name, "device"), []).append(ms)
+
+    def line(res, names):
+        return "; ".join(
+            f"{n} device {sum(res[(n, 'device')]) / len(res[(n, 'device')]):.4f}"
+            f" ms {[round(t, 4) for t in res[(n, 'device')]]}, chain "
+            f"{sum(res[n]) / len(res[n]):.4f} ms "
+            f"{[round(t, 4) for t in res[n]]}" for n in names)
 
     times = {}
     for n, (name, stride, shape, chans) in enumerate(stdc_cases()[:6]):
         block = backbone.features[n + 2]
         x32 = torch.from_numpy(np.random.default_rng(n).standard_normal(
             shape).astype(np.float32)).to(device)
-        for dtype in (torch.bfloat16, torch.float32):
-            fp = fs.fold_cat_params(block, dtype)
-            x = x32.to(dtype)
-            res = {}
-            with torch.inference_mode(), fp32_math():
-                for which in ("plain", "kernel", "kernel", "plain"):
-                    fn = (fs.fused_cat_bottleneck if which == "kernel"
-                          else fs.fused_cat_bottleneck_plain)
-                    res.setdefault(which, []).append(
-                        cuda_ms(lambda: fn(x, fp), 10))
-            mean = {k: sum(v) / len(v) for k, v in res.items()}
-            tag = str(dtype).replace("torch.", "")
-            times[(name, tag)] = (mean["kernel"], mean["plain"])
-            log("timing", f"fused CatBottleneck {name} s{stride} {shape} {tag}"
-                f": kernel {mean['kernel']:.4f} ms {res['kernel']}, plain "
-                f"{mean['plain']:.4f} ms {res['plain']} | {card}")
+        x = x32.to(torch.bfloat16)
+        folded = {k: fold(block, torch.bfloat16)
+                  for k, (fold, _) in fns.items()}
 
-    def eager():
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            backbone.features[2:8](h)
+        def eager():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                block(x)
 
-    def fused():
+        res = {}
+        with torch.inference_mode():
+            for which in (a, b, b, a):
+                timed(res, which, functools.partial(
+                    fns[which][1], x, folded[which]), which != "plain")
+            timed(res, "eager", eager, False)
+        times[(name, "bfloat16")] = {k: sum(v) / len(v)
+                                     for k, v in res.items()}
+        if "kernel" in fns:
+            phases = stdc_phase_ms(fs, x, folded["kernel"])
+            names = (["entry", "avd_pool"] if stride == 2 else ["entry"]) + [
+                "x2", "x3", "x4"]
+            log("timing", f"fused CatBottleneck {name} bfloat16, the "
+                f"kernel's phases (device ms): " + ", ".join(
+                    f"{p} {t:.4f}" for p, t in zip(names, phases))
+                + f" | {card}")
+        bound = bound_cat(stride, shape[1:], chans, shape[0], 2)
+        plan = fs.launch_plan(x, folded["kernel"])
+        log("timing", f"fused CatBottleneck {name} s{stride} {shape} bfloat16"
+            f", turns {a} {b} {b} {a}: {line(res, (a, b))}; eager cuDNN "
+            f"module (autocast, eval): {line(res, ('eager',))}; bound "
+            f"{bound[0]:.4f} ms ({bound[1]}); the kernel's plan does "
+            f"{cat_macs_done(plan, shape[0]) / 1e9:.2f} GMAC of "
+            f"{cat_macs(stride, shape[1:], chans, shape[0]) / 1e9:.2f} useful"
+            f" | {card}")
+        if "plain" not in fns:
+            continue
+        fp = fs.fold_cat_params(block, torch.float32)
+        res = {}
+        with torch.inference_mode(), fp32_math():
+            for which in ("plain", "kernel", "kernel", "plain"):
+                fn = (fs.fused_cat_bottleneck if which == "kernel"
+                      else fs.fused_cat_bottleneck_plain)
+                res.setdefault(which, []).append(
+                    cuda_ms(lambda: fn(x32, fp), 10))
+        mean = {k: sum(v) / len(v) for k, v in res.items()}
+        times[(name, "float32")] = mean
+        log("timing", f"fused CatBottleneck {name} s{stride} {shape} float32"
+            f": kernel {mean['kernel']:.4f} ms {res['kernel']}, plain "
+            f"{mean['plain']:.4f} ms {res['plain']} | {card}")
+
+    chains = {"eager": (None, None)}
+    chains.update({k: v for k, v in fns.items() if k != "plain"})
+    folded = {k: [fold(blk, torch.bfloat16) for blk in backbone.features[2:8]]
+              for k, (fold, _) in chains.items() if fold is not None}
+
+    def chain(which):
+        if which == "eager":
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                backbone.features[2:8](h)
+            return
         out = h
-        for fp in folded:
-            out = fs.fused_cat_bottleneck(out, fp)
+        for fp in folded[which]:
+            out = chains[which][1](out, fp)
 
+    order = [k for k in chains if k != "eager"] + ["eager"]
     res = {}
     with torch.inference_mode():
-        for which in ("eager", "fused", "fused", "eager"):
-            res.setdefault(which, []).append(
-                cuda_ms(eager if which == "eager" else fused, 10))
+        for which in order + order[::-1]:
+            timed(res, which, functools.partial(chain, which),
+                  which != "eager")
     mean = {k: sum(v) / len(v) for k, v in res.items()}
     times["chain"] = mean
-    log("timing", f"features[2:8], bf16, batch 8, 1024x512: eager cuDNN "
-        f"(autocast, eval) {mean['eager']:.4f} ms {res['eager']}; six fused "
-        f"launches {mean['fused']:.4f} ms {res['fused']}; fused / eager "
-        f"{mean['fused'] / mean['eager']:.2f} | {card}")
+    log("timing", f"features[2:8], bf16, batch 8, 1024x512: "
+        f"{line(res, order)}; " + ", ".join(
+            f"{k} / eager device {mean[(k, 'device')] / mean[('eager', 'device')]:.3f}"
+            f" chain {mean[k] / mean['eager']:.3f}" for k in order[:-1])
+        + f" | {card}")
     return times
 
 
@@ -1850,8 +1958,64 @@ def bound_cat(stride, in_chw, chans, batch, elem):
         vector += out_px * h1 * (18 + 10 + 1)
     nbytes = ((in_px * cin + out_px * sum(chans) + weights) * elem
               + 4 * (sum(chans) + (h1 if stride == 2 else 0)))
-    macs = in_px * cin * h1 + 9 * out_px * (h1 * h2 + h2 * h3 + h3 * h4)
+    macs = cat_macs(stride, in_chw, chans, batch)
     return roofline(nbytes, {"bf16_tensor": 2 * macs, "fp32": vector})
+
+
+def stdc_phase_ms(fs, x, fp):
+    """Device ms of each phase of one bf16 CatBottleneck launch (the entry
+    conv; at stride 2 avd_pool; x2, x3, x4), by profiler kernel sums of
+    launches whose later phases have no items (each phase's time is the
+    difference from the launch with one phase fewer). The launches go to
+    the library directly, past the wrapper's count: they measure, they are
+    not the path."""
+    import ctypes
+
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda.build import (
+        check_launch, current_stream)
+
+    s = fp.stride
+    plan = fs.launch_plan(x, fp)
+    out_hw = (-(-x.shape[2] // s), -(-x.shape[3] // s))
+    out = torch.empty((x.shape[0], sum(fp.channels), *out_hw),
+                      dtype=x.dtype, device=x.device)
+    mids = fs._tc_intermediates(x, plan, out_hw)
+    n = 5 if s == 2 else 4
+
+    def launch(upto):
+        bar = torch.zeros(1, dtype=torch.int32, device=x.device)
+        params = fs._tc_params(x, out, mids, bar, fp, plan)
+        for k in range(upto + 1, n):
+            if s == 2 and k == 1:
+                params.dw_items = 0
+            else:
+                params.st[k - (1 if s == 2 else 0)].items = 0
+        check_launch(fs._library().fused_cat_bf16(
+            ctypes.byref(params), s, plan.grid, plan.smem,
+            current_stream(x.device)), "fused_cat_bf16")
+
+    upto = [device_ms(functools.partial(launch, k), STDC_KERNELS)[0]
+            for k in range(n)]
+    return [upto[0]] + [upto[k] - upto[k - 1] for k in range(1, n)]
+
+
+def cat_macs(stride, in_chw, chans, batch):
+    """Useful multiply-adds of one CatBottleneck's 1x1 and 3x3 convs."""
+    cin, h, w = in_chw
+    h1, h2, h3, h4 = chans
+    out_px = batch * -(-h // stride) * -(-w // stride)
+    return (batch * h * w * cin * h1
+            + 9 * out_px * (h1 * h2 + h2 * h3 + h3 * h4))
+
+
+def cat_macs_done(plan, batch):
+    """Multiply-adds the bf16 body's plan does on the tensor cores: every
+    item's tile (partial tiles whole), 64 output channels and its input
+    channels padded to whole chunks, at every tap."""
+    return sum(st.items(batch) * 32 * st.mt * 64 * st.nk * st.kc * st.taps
+               for st in plan.stages)
 
 
 def kernel_record(name, source, replaces, launches, max_err, ms, plain_ms,
@@ -1872,8 +2036,14 @@ def compare_baseline(device, card, root):
     device and chain time in turns A B B A (``time_argmax``) and the eval
     forward with each (``time_eval``); then the CE kernels likewise
     (``time_ce``) and the bf16 train step with each (``time_train_step``)
-    and its CE kernels' share of device time."""
+    and its CE kernels' share of device time; then each of the six
+    CatBottlenecks of features[2:8] and their six-launch chain
+    (``time_stdc``: bf16, batch 8, device and chain time, beside the eager
+    cuDNN modules)."""
+    import torch
+
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     base_ua = load_baseline(root, "upsample_argmax")
@@ -1894,6 +2064,13 @@ def compare_baseline(device, card, root):
            "kernel": fc.cross_entropy_upsampled}
     time_ce(device, card, fns)
     time_train_step(device, card, fns)
+    base_fs = load_baseline(root, "fused_stdc")
+    base_fs._library()
+    backbone = seeded_backbone(device)
+    h = stdc_input(device, backbone).to(torch.bfloat16)
+    time_stdc(device, backbone, h, card, {
+        "baseline": (base_fs.fold_cat_params, base_fs.fused_cat_bottleneck),
+        "kernel": (fs.fold_cat_params, fs.fused_cat_bottleneck)})
 
 
 def main(argv=None):
@@ -1906,7 +2083,8 @@ def main(argv=None):
         description="Drive the PyTorch port on one CUDA card, phase by phase.")
     parser.add_argument(
         "--baseline", metavar="DIR",
-        help="instead of the phases, hold the upsample+argmax and CE kernels "
+        help="instead of the phases, hold the upsample+argmax, CE and "
+             "CatBottleneck kernels "
              "against those of the version of "
              "dasemanticsegmentationaml_tpu_torch/ under DIR")
     args = parser.parse_args(argv)
@@ -1958,7 +2136,7 @@ def main(argv=None):
     roll_launches, roll_times, roll_bound, roll_err = phase_roll_kernel(
         device, card)
     backbone = seeded_backbone(device)
-    stdc_launches, folded, h = phase_stdc_path(device, backbone)
+    stdc_launches, h = phase_stdc_path(device, backbone)
     model = phase_model(device)
     eval_launches = phase_slice()
     train_launches = phase_train()
@@ -1966,7 +2144,7 @@ def main(argv=None):
     phase_da()
     phase_da_parity(device)
     times = phase_timing(device, model, card)
-    stdc_times = time_stdc(device, backbone, folded, h, card)
+    stdc_times = time_stdc(device, backbone, h, card)
     time_da_step(device, card)
 
     argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
@@ -1974,11 +2152,16 @@ def main(argv=None):
     ce = times["ce"][(ce_shape, "bfloat16")]
     labels = ce_labels("cpu", (ce_shape[0], *ce_hw), 0, "mixed")
     n_valid = int(((labels >= 0) & (labels < ce_shape[1])).sum())
-    # a fused_cat kernel's ms / plain_ms / bound: the sum over the three
-    # bottlenecks of its stride on the path, bf16, batch 8
-    stdc_ms = {s: [sum(stdc_times[(f"features[{i + 2}]", "bfloat16")][k]
-                       for i, (st, _, _) in enumerate(STDC813_BOTTLENECKS)
-                       if st == s) for k in (0, 1)] for s in (1, 2)}
+    # a fused_cat kernel's times and bound: sums over the three bottlenecks
+    # of its stride on the path, bf16, batch 8
+    stdc_keys = {"ms": "kernel", "plain_ms": "plain",
+                 "device_ms": ("kernel", "device"),
+                 "plain_device_ms": ("plain", "device"), "eager_ms": "eager",
+                 "eager_device_ms": ("eager", "device")}
+    stdc_ms = {s: {k: sum(stdc_times[(f"features[{i + 2}]", "bfloat16")][v]
+                          for i, (st, _, _) in enumerate(STDC813_BOTTLENECKS)
+                          if st == s) for k, v in stdc_keys.items()}
+               for s in (1, 2)}
     stdc_bound = {}
     for s in (1, 2):
         parts = [bound_cat(st, chw, chans, 8, 2)
@@ -2013,7 +2196,8 @@ def main(argv=None):
         for part in ("fwd", "bwd")] + [
         kernel_record(f"fused_cat_s{s}", STDC_SOURCE, STDC_REPLACES[s],
                       stdc_launches[f"fused_cat_s{s}"], stdc_errs[s],
-                      stdc_ms[s][0], stdc_ms[s][1], stdc_bound[s])
+                      stdc_ms[s].pop("ms"), stdc_ms[s].pop("plain_ms"),
+                      stdc_bound[s], **stdc_ms[s])
         for s in (1, 2)] + [
         kernel_record(name, COPY_SOURCE, COPY_REPLACES[name],
                       copy_launches[name], copy_err, copy_ms[name],

@@ -272,6 +272,12 @@ def _folded_block(stride, in_c, out_c, dtype, device, seed=0):
     (1, 64, 128, (2, 64, 19, 37)),     # odd sizes
     (2, 64, 128, (2, 64, 38, 22)),
     (2, 16, 64, (1, 16, 2, 5)),        # H = 2, width below one tile
+    (1, 64, 128, (2, 64, 23, 41)),     # ragged last 64/128-pixel tile
+    (2, 64, 128, (1, 64, 29, 45)),     # both ways; ragged x1 rows
+    (1, 16, 32, (2, 16, 12, 20)),      # (16, 8, 4, 4): below the MMA's
+    (2, 16, 32, (1, 16, 15, 9)),       # 64 output and 16 input channels
+    (1, 24, 64, (1, 24, 7, 33)),       # (32, 16, 8, 8), Cin 24
+    (2, 40, 64, (2, 40, 18, 10)),
 ])
 def test_fused_cat_equals_plain_version(cuda_device, stride, in_c, out_c,
                                         shape, dtype):

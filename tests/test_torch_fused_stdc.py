@@ -241,17 +241,123 @@ def test_table_matches_the_model():
 @pytest.mark.parametrize("elem", [2, 4])
 @pytest.mark.parametrize("stride,chw,chans", STDC813_BOTTLENECKS)
 def test_plan_fits_shared_memory(stride, chw, chans, elem):
-    """Each bottleneck gets a tile within 227 KB whose buffers hold what
-    the kernel puts in them."""
+    """Each bottleneck gets a plan within 227 KB whose buffers hold what
+    the kernel puts in them. fp32 (``plan``): the CUDA-core body's two
+    halo buffers. bf16 (``tc_plan``): the weight ring, the staged input of
+    every stage and the stride-2 front's x1 region, each at a row pitch
+    that is a whole, odd number of 16-byte units (ldmatrix's 8 rows on 8
+    bank groups), and as many blocks an SM as shared memory holds."""
     c, h, w = chw
     out_hw = (-(-h // stride), -(-w // stride))
-    p = fs.plan(stride, elem, c, chans, 8, out_hw)
-    assert p is not None and p.smem <= fs.SMEM_LIMIT and p.off_b % 16 == 0
-    h1, h2, h3, _ = chans
-    r = lambda k: (p.th + 2 * k) * (p.tw + 2 * k)  # noqa: E731
-    assert p.off_b >= h1 * r(3) * elem >= h3 * r(1) * elem
-    second = p.smem - p.off_b
-    assert second >= h2 * r(2) * elem
+    if elem == 4:
+        p = fs.plan(stride, elem, c, chans, 8, out_hw, 132)
+        assert p is not None and p.smem <= fs.SMEM_LIMIT and p.off_b % 16 == 0
+        h1, h2, h3, _ = chans
+        r = lambda k: (p.th + 2 * k) * (p.tw + 2 * k)  # noqa: E731
+        assert p.off_b >= h1 * r(3) * elem >= h3 * r(1) * elem
+        second = p.smem - p.off_b
+        assert second >= h2 * r(2) * elem
+        if stride == 2:
+            assert p.chunk in (8, 16, 32)
+            assert second >= p.chunk * (2 * p.th + 13) * (2 * p.tw + 13) * elem
+        return
+    p = fs.tc_plan(stride, c, chans, 8, (h, w), 132)
+    assert p.smem <= fs.SMEM_LIMIT
+    assert p.off_act == fs.TC_BAR_BYTES + fs.TC_SLOTS * fs.TC_SLOT_BYTES
+    assert p.off_act % 128 == 0 and p.off_act + p.act_bytes <= p.smem
+    assert p.grid == 132 * p.blocks_per_sm
+    assert 1 <= p.blocks_per_sm <= fs.TC_MAX_BLOCKS_PER_SM
+    assert p.blocks_per_sm * (p.smem + 1024) <= fs.SMEM_PER_SM
+    cins = (c,) + tuple(chans[:3])
+    for k, st in enumerate(p.stages):
+        hw = (h, w) if k == 0 else out_hw
+        assert (st.cin, st.cout) == (cins[k], chans[k])
+        assert st.taps == (9 if k else 1) and st.th * st.tw == 32 * st.mt
+        assert st.kc % 16 == 0 and st.nk * st.kc == st.pitch >= st.cin
+        # a slice fits a ring slot, at a pitch odd in 16-byte units
+        assert fs.TC_BN * st.row_bytes <= fs.TC_SLOT_BYTES
+        assert st.row_bytes % 16 == 0 and (st.row_bytes // 16) % 2 == 1
+        # each of its two buffers holds a chunk of staged input: pixel-
+        # major with a one-pixel halo, or (the entry) channel-major
+        assert 2 * st.buf_bytes <= p.act_bytes
+        # then the epilogue's tile of 32 mt pixels x 64 + 8 channels
+        assert st.th * st.tw * (fs.TC_BN + 8) * 2 == st.tile_bytes
+        assert st.tile_bytes <= p.act_bytes
+        assert st.buf_bytes % 128 == 0 and st.buf_bytes >= st.stage_bytes
+        if k:
+            assert st.stage_bytes == ((st.th + 2) * (st.tw + 2)
+                                      * st.row_bytes)
+        else:
+            ldm = st.th * st.tw + 8
+            assert (st.stage_bytes == min(2, st.nk) * st.kc * ldm * 2
+                    and (ldm // 8) % 2 == 1)
+        tiles = (st.tiles_y * st.th, st.tiles_x * st.tw)
+        assert hw[0] <= tiles[0] < hw[0] + st.th
+        assert hw[1] <= tiles[1] < hw[1] + st.tw
     if stride == 2:
-        assert p.chunk in (8, 16, 32)
-        assert second >= p.chunk * (2 * p.th + 13) * (2 * p.tw + 13) * elem
+        # avd_pool: the tile's x1 pixels and its avd and pool tiles, 64 + 8
+        # bf16 each
+        npx = (2 * p.dw_th + 1) * (2 * p.dw_tw + 1)
+        assert p.dw_bytes == ((npx + 2 * p.dw_th * p.dw_tw)
+                              * (fs.TC_BN + 8) * 2)
+        assert p.off_act + p.dw_bytes <= p.smem
+    else:
+        assert p.dw_th == p.dw_tw == p.dw_bytes == 0
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+def test_plans_take_the_sm_count(sms):
+    """The grid is the card's SM count times the blocks an SM holds, and
+    neither plan reads a fixed count: features[7] (stride 1) and
+    features[6] (stride 2) at batch 8."""
+    for stride, (c, h, w), chans in STDC813_BOTTLENECKS[4:]:
+        p = fs.tc_plan(stride, c, chans, 8, (h, w), sms)
+        assert p.grid == sms * p.blocks_per_sm
+        assert fs.tc_plan(stride, c, chans, 8, (h, w), sms, 1).grid == sms
+        out_hw = (-(-h // stride), -(-w // stride))
+        assert fs.plan(stride, 4, c, chans, 8, out_hw, sms) is not None
+
+
+def _unpack_mma(packed, cout, cin, k):
+    """The inverse of ``pack_mma``, in plain torch: (nblk, nk, taps, 64,
+    kc + 8) -> OIHW (cout, cin, k, k), after checking that every padded
+    place is zero."""
+    nblk, nk, taps, bn, row = packed.shape
+    kc = row - 8
+    assert bn == fs.TC_BN and taps == k * k
+    assert not packed[..., kc:].any()
+    full = packed[..., :kc].permute(0, 3, 1, 4, 2).reshape(
+        nblk * bn, nk * kc, taps)
+    assert not full[cout:].any() and not full[:, cin:].any()
+    return full[:cout, :cin].reshape(cout, cin, k, k)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("in_c,out_c", [
+    (24, 32),     # (16, 8, 4, 4): every conv below the MMA's 64 x 16
+    (40, 64),     # (32, 16, 8, 8); Cin 40 pads to 48
+    (64, 256),    # features[2]'s channels: whole slices
+    (200, 160),   # (80, 40, 20, 20): a ragged last block and chunk
+])
+def test_mma_packing_unpacks_to_the_folded_weights(stride, in_c, out_c):
+    """The bf16 body's packed weights hold fold_cat_params' OIHW weights
+    bit for bit, zeros everywhere else, and its biases padded to whole
+    blocks of 64; the avd conv stays fp32 (h1, 9)."""
+    _, _, block = _pair(stride, in_c, out_c, 8, 8)
+    fp = fs.fold_cat_params(block, torch.bfloat16)
+    convs = (fp.w1, fp.k2, fp.k3, fp.k4)
+    biases = (fp.b1, fp.b2, fp.b3, fp.b4)
+    assert len(fp.packed) == (10 if stride == 2 else 8)
+    for n, (k, b) in enumerate(zip(convs, biases)):
+        packed, bias = fp.packed[2 * n], fp.packed[2 * n + 1]
+        cout, cin, kh, _ = k.shape
+        assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+        assert packed.shape[4] - 8 == fs.mma_chunk(cin)
+        assert torch.equal(_unpack_mma(packed, cout, cin, kh), k)
+        assert bias.dtype == torch.float32
+        assert bias.shape[0] == packed.shape[0] * fs.TC_BN
+        assert torch.equal(bias[:cout], b) and not bias[cout:].any()
+    if stride == 2:
+        h1 = fp.channels[0]
+        assert torch.equal(fp.packed[8], fp.avd_k.float().reshape(h1, 9))
+        assert torch.equal(fp.packed[9], fp.avd_b)

@@ -321,3 +321,28 @@ def test_roll_repro_entry_point_on_cpu(capsys):
     with pytest.raises(ValueError, match="multiple of 16 bytes"):
         roll_repro.main(["--device", "cpu", "--cols", "60"])
     assert capsys.readouterr().out.splitlines() == ["float32: ok"]
+
+
+@pytest.mark.parametrize("name", ["copy_probe", "fused_stdc"])
+def test_ring_helpers_live_in_one_header(name, tmp_path):
+    """The TMA ring's helpers are defined once, in csrc/tma_ring.cuh, which
+    both kernels that stream by bulk copies include; an edit of the
+    header rebuilds each of them (its digest changes)."""
+    import re
+    import shutil
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import build
+
+    src = os.path.join(build.CSRC_DIR, f"{name}.cu")
+    with open(src) as f:
+        text = f.read()
+    assert '#include "tma_ring.cuh"' in text
+    for helper in ("mbar_init", "mbar_expect_tx", "mbar_wait", "bulk_load",
+                   "bulk_store", "smem_addr"):
+        assert not re.search(rf"__device__[^;{{]*\b{helper}\(", text), helper
+    shutil.copy(src, tmp_path / f"{name}.cu")
+    shutil.copy(os.path.join(build.CSRC_DIR, "tma_ring.cuh"), tmp_path)
+    first = build.source_digest(str(tmp_path / f"{name}.cu"))
+    with open(tmp_path / "tma_ring.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.source_digest(str(tmp_path / f"{name}.cu")) != first
