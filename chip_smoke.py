@@ -11,14 +11,16 @@ version under DIR (an earlier commit's
 into a git-ignored directory) are held against this checkout's: the
 earlier upsample+argmax on the kernel phase's cases (its disagreements
 logged), then each kernel and the eval forward, train step or
-features[2:8] chain with it timed in turns A B B A; nothing else runs
-(``compare_baseline``).
+features[2:8] chain with it timed in turns A B B A, and last the
+unaugmented train and DA steps, each with its own package's batch
+preparation, in turns A B B A; nothing else runs (``compare_baseline``).
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
                   fallback); prints its name and power limit from nvidia-smi.
 2. build       -- compiles csrc/upsample_argmax.cu, csrc/fused_ce.cu,
                   csrc/fused_stdc.cu, csrc/copy_probe.cu and csrc/tile_roll.cu
-                  with nvcc for sm_90a, one nvcc each, all at once; prints
+                  with nvcc for sm_90a, one nvcc each, and native/augment.cpp
+                  (the host augmentation) with g++, all at once; prints
                   ptxas.
 3. kernel      -- the fused upsample+argmax kernel against its plain PyTorch
                   version on the card, bit for bit, on random-normal,
@@ -76,16 +78,27 @@ features[2:8] chain with it timed in turns A B B A; nothing else runs
                   through the --domain_shift CLI reproduces its mIoU.
 12. train-parity- one fp32 train step at 2x3x1024x512 on the card against
                   the same step on the CPU (TF32 off) and in fp64 on the CPU.
-13. da        -- the port's DA CLI (GTA5 -> Cityscapes) on synthetic 16 +
-                  16 + 4 image trees at 1024x512, batch 8, bf16, 2 epochs of
-                  2 steps, once with the FC discriminator and the 4-phase
-                  step, once with the DW+BN one and the combined step (the CE
-                  kernels' counts reset before and read after each); its
-                  GTA5_1.pth through the --domain_shift CLI.
-14. da-parity  -- one fp32 DA step (DW+BN discriminator) at 2x3x1024x512 on
+13. augment    -- the device augmentation (CS-HF, H-RP, B-GS-R) on the card
+                  against the CPU with the same explicit parameters at batch
+                  8, 1024x512: the training path within 1e-2 and labels
+                  equal on >= 99.9% of the pixels, the pil-exact replay
+                  bit for bit (H-RP: JAX's envelope); then its ms per
+                  batch, labels warped or not, and the native host ops' ms
+                  per image on one thread beside their numpy plain version.
+14. da        -- the port's DA CLI (GTA5 -> Cityscapes) on synthetic 16 +
+                  16 + 4 image trees at 1024x512, batch 8, bf16, 2 epochs:
+                  with the FC discriminator and the 4-phase step, with the
+                  DW+BN one and the combined step (2 steps an epoch), with
+                  the source augmented by H-RP on the card and by B-GS-R on
+                  the host with its labels warped (1 step an epoch); each
+                  run's GTA5_1.pth through the --domain_shift CLI; then the
+                  supervised CLI on the GTA5 tree with CS-HF on the card.
+                  The kernels' counts are reset before and read after each
+                  run.
+15. da-parity  -- one fp32 DA step (DW+BN discriminator) at 2x3x1024x512 on
                   the card against the same step on the CPU (TF32 off) and in
                   fp64 on the CPU.
-15. timing     -- CUDA-event times of every kernel and of its plain version
+16. timing     -- CUDA-event times of every kernel and of its plain version
                   (the upsample+argmax, CE and CatBottleneck kernels and
                   their plain version also by their device time alone,
                   from the profiler's kernel sums; upsample+argmax beside
@@ -94,8 +107,11 @@ features[2:8] chain with it timed in turns A B B A; nothing else runs
                   phase of its launch and the GMAC its plan does),
                   features + argmax kernel throughput, the bf16 train step at
                   batch 8 with the CE kernel and with its plain version (turns
-                  A B B A, peak memory), the bf16 DA step at batch 8, the
-                  features[2:8] chain eager (cuDNN) against fused, and
+                  A B B A, peak memory), the bf16 DA step at batch 8 (and
+                  with its batches prepared, the source augmented by each
+                  menu on the card against unaugmented, turns A B C D D C B
+                  A), the features[2:8] chain eager (cuDNN) against fused,
+                  and
                   torch.profiler passes: device busy share, top kernels and
                   the CE kernels' share of the train and DA steps.
 
@@ -259,7 +275,14 @@ def ce_calls(fn, x, labels, out_hw):
 
 
 def load_baseline(root, module):
-    """``ops/cuda/<module>`` of another version of the port, the package
+    """``ops/cuda/<module>`` of another version of the port
+    (``baseline_module``)."""
+    return baseline_module(root, f"ops.cuda.{module}")
+
+
+def baseline_module(root, name):
+    """The module ``name`` (a dotted path inside the package, as
+    ``train.adversarial``) of another version of the port, the package
     ``dasemanticsegmentationaml_tpu_torch/`` under ``root`` (an earlier
     commit unpacked with ``git archive``), imported under its own name
     ``baseline_torch_port``: its imports are relative, so its modules,
@@ -279,7 +302,7 @@ def load_baseline(root, module):
         module_ = importlib.util.module_from_spec(spec)
         sys.modules[BASELINE] = module_
         spec.loader.exec_module(module_)
-    return importlib.import_module(f"{BASELINE}.ops.cuda.{module}")
+    return importlib.import_module(f"{BASELINE}.{name}")
 
 
 def roofline(nbytes, ops):
@@ -1127,34 +1150,43 @@ def write_gtav(root, n=16, size=(512, 1024), seed=2):
         lab.save(os.path.join(root, "labels", f"{i:05d}.png"))
 
 
-#: the DA CLI runs of phase_da: (name, flags)
+#: the DA CLI runs of phase_da: (name, flags, steps per epoch); the last
+#: two augment the source batches, on the card and on the host
 DA_RUNS = (("FC D, interleaved", ["--depthwise", "False",
-                                  "--da_step_mode", "interleaved"]),
+                                  "--da_step_mode", "interleaved"], 2),
            ("DW+BN D, combined", ["--depthwise", "True", "--batch_norm", "True",
-                                  "--da_step_mode", "combined"]))
+                                  "--da_step_mode", "combined"], 2),
+           ("FC D, --aug_type H-RP on the card", [
+               "--depthwise", "False", "--aug_type", "H-RP"], 1),
+           ("FC D, --aug_type B-GS-R on the host, labels warped", [
+               "--depthwise", "False", "--aug_type", "B-GS-R",
+               "--host_augment", "True", "--augment_labels", "True"], 1))
 
 
 def phase_da():
-    """The DA CLI at batch 8, 1024x512, bf16, 2 epochs of 2 steps, in both
-    step modes; the CE kernels' counts are reset before each run and read
-    after it."""
+    """The DA CLI at batch 8, 1024x512, bf16, 2 epochs, in both step modes
+    (2 steps an epoch) and with the source augmented by H-RP on the card
+    and by B-GS-R on the host (1 step an epoch); then the supervised CLI
+    on the GTA5 tree with CS-HF on the card (1 step). The kernels' counts
+    are reset before each run and read after it."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch import cli
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
-    epochs, steps_per_epoch = 2, 2
-    steps = epochs * steps_per_epoch
-    # the two heads that do not feed D go through the fused CE once each
-    # per step, forward and backward, in both modes: 2 x 4 = 8
-    expect = 2 * steps
+    epochs = 2
+    launches_by_run = {}
     with tempfile.TemporaryDirectory() as root:
         gta, cs = os.path.join(root, "gta5"), os.path.join(root, "cityscapes")
         write_gtav(gta, n=16)
         write_cityscapes(cs, "train", n=16, seed=1)
         write_cityscapes(cs, "val", n=4)
-        for n, (name, flags) in enumerate(DA_RUNS):
+        for n, (name, flags, steps_per_epoch) in enumerate(DA_RUNS):
+            steps = epochs * steps_per_epoch
+            # the two heads that do not feed D go through the fused CE
+            # once each per step, forward and backward, in both modes
+            expect = 2 * steps
             save = os.path.join(root, f"ck{n}")
             log_path = os.path.join(root, f"da{n}.jsonl")
             argv = ["--domain_adaptation", "True", "--root", cs,
@@ -1202,6 +1234,167 @@ def phase_da():
             log("da", f"{name}: --domain_shift on GTA5_1.pth: {ev}")
             check(math.isfinite(ev["miou"]) and 0.0 <= ev["miou"] <= 1.0,
                   f"bad mIoU {ev}")
+            launches_by_run[name] = launches
+        launches_by_run["supervised GTA5, --aug_type CS-HF"] = (
+            train_gtav_augmented(root, gta))
+    return launches_by_run
+
+
+def train_gtav_augmented(root, gta):
+    """The supervised CLI on the GTA5 tree (12 train images, 4 val) with
+    CS-HF on the card, batch 8, bf16, 1 step; returns its launch counts."""
+    from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+
+    log_path = os.path.join(root, "gtav.jsonl")
+    argv = ["--dataset", "GTAV", "--root", gta, "--aug_type", "CS-HF",
+            "--batch_size", "8", "--num_epochs", "1",
+            "--dtype", "bfloat16", "--cuda", "0", "--tensorboard", "False",
+            "--save_model_path", os.path.join(root, "ck_gtav"),
+            "--jsonl_log", log_path]
+    fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    secs = time.perf_counter() - t0
+    launches = {"fused_ce_fwd": fc.FWD_LAUNCHES,
+                "fused_ce_bwd": fc.BWD_LAUNCHES,
+                "upsample_argmax": ua.LAUNCHES}
+    with open(log_path) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    log("da", f"supervised CLI, --dataset GTAV --aug_type CS-HF, batch 8, "
+        f"1024x512, bf16, 1 step: {res}; loss {losses}; {secs:.2f} s host "
+        f"time (set-up and validation included); launches {launches}")
+    check(launches["fused_ce_fwd"] == 3 and launches["fused_ce_bwd"] == 3,
+          f"fused CE launches {launches}, expected 3 each")
+    check(launches["upsample_argmax"] > 0,
+          "validation did not launch upsample_argmax")
+    check(len(losses) == 1 and math.isfinite(losses[0]),
+          f"bad losses {losses}")
+    return launches
+
+
+AUG_TYPES = ("CS-HF", "H-RP", "B-GS-R")
+#: the device augmentation's training path, card against CPU (as
+#: tests/test_torch_cuda.py::test_augment_on_card_equals_cpu): images
+#: within 1e-2 on the 0-255 scale and labels equal, each on at least this
+#: share of the pixels; the rest are float32 floor and round ties
+AUG_SHARE = 0.999
+
+
+def phase_augment(device, card):
+    """The device augmentation (data/augment.py) on the card against the
+    same function on the CPU with the same explicit parameters, at batch
+    8, 1024x512: the training path of each menu within ``AUG_SHARE``, the
+    pil-exact replay of two samples bit for bit (CS-HF, B-GS-R; also
+    against the numpy plain version) or within JAX's envelope (H-RP: at
+    most 1e-3 of the pixels, by at most 1; labels equal). Then its time on
+    the card per batch, labels warped or not (CUDA events, the host path
+    included, and device time by profiler kernel sums), and the native
+    host ops' time per image on one thread beside their numpy plain
+    version's. Returns the times."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.data import augment as aug
+    from dasemanticsegmentationaml_tpu_torch.data import augment_pil_exact as px
+    from dasemanticsegmentationaml_tpu_torch.data import host_augment as ha
+    from dasemanticsegmentationaml_tpu_torch.data import native_augment as na
+
+    rng = np.random.default_rng(3)
+    n, h, w = 8, 1024, 512
+    images = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    labels = rng.integers(0, 35, (n, h, w), dtype=np.uint8)
+    imgs_cpu, labs_cpu = torch.from_numpy(images).float(), torch.from_numpy(
+        labels)
+    imgs, labs = imgs_cpu.to(device), labs_cpu.to(device)
+    for aug_type in AUG_TYPES:
+        params = aug.sample_params(aug_type, n, h, w,
+                                   torch.Generator().manual_seed(1),
+                                   apply_prob=0.75)
+        want = aug.apply_params(imgs_cpu, labs_cpu, aug_type, params,
+                                augment_labels=True)
+        got = aug.apply_params(imgs, labs, aug_type,
+                               {k: v.to(device) for k, v in params.items()},
+                               augment_labels=True)
+        img_share = float(((got[0].cpu() - want[0]).abs() <= 1e-2)
+                          .float().mean())
+        label_share = float((got[1].cpu() == want[1]).float().mean())
+        log("augment", f"{aug_type}, training path, batch 8, 1024x512, "
+            f"{int(params['applied'].sum())} of 8 applied, card vs CPU: "
+            f"images within 1e-2 on {img_share:.6f} of the pixels, labels "
+            f"equal on {label_share:.6f} (bound {AUG_SHARE})")
+        check(img_share >= AUG_SHARE and label_share >= AUG_SHARE,
+              f"{aug_type}: the card's training path disagrees")
+        for i in range(2):
+            p = ha.sample_params(aug_type, ha.rng_for(2, 0, i), h, w,
+                                 apply_prob=1.0)
+            want = aug.apply_family_with_params(
+                imgs_cpu[i], labs_cpu[i], aug_type, p, augment_labels=True)
+            got = aug.apply_family_with_params(
+                imgs[i], labs[i], aug_type, p, augment_labels=True)
+            d = (got[0].cpu() - want[0]).abs()
+            plain = torch.from_numpy(px.apply_family(images[i], aug_type, p))
+            d_plain = (got[0].cpu() - plain.float()).abs()
+            log("augment", f"{aug_type}, pil-exact replay of sample {i}, "
+                f"card vs CPU: {float((d > 0).float().mean()):.6f} of the "
+                f"pixels differ, by at most {float(d.max())}; labels equal "
+                f"{torch.equal(got[1].cpu(), want[1])}; vs the numpy plain "
+                f"version: {float((d_plain > 0).float().mean()):.6f}, at "
+                f"most {float(d_plain.max())}")
+            check(torch.equal(got[1].cpu(), want[1]),
+                  f"{aug_type}: pil-exact labels differ")
+            if aug_type == "H-RP":
+                check(float((d > 0).float().mean()) <= 1e-3
+                      and float(d.max()) <= 1.0,
+                      "H-RP: pil-exact replay outside the envelope")
+            else:
+                check(not d.any() and not d_plain.any(),
+                      f"{aug_type}: pil-exact replay not bit-identical")
+
+    times = {}
+    for aug_type in AUG_TYPES:
+        for warp_labels in (False, True):
+            def run():
+                aug.augment_batch(imgs, labs, aug_type,
+                                  aug.batch_generator(0, 0, 0, device),
+                                  augment_labels=warp_labels)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            ms = cuda_ms(run, 20)
+            extra = (torch.cuda.max_memory_allocated(device) - base) / 2**20
+            dev_ms, _ = device_ms(run, n=10)
+            times[(aug_type, warp_labels)] = (ms, dev_ms)
+            log("augment", f"{aug_type} on the card, batch 8, 1024x512 "
+                f"fp32, augment_labels {warp_labels}: {ms:.4f} ms/batch "
+                f"(CUDA events), device {dev_ms:.4f} ms (kernel sums); "
+                f"{extra:.1f} MiB above the batch at its peak | {card}")
+
+    img, lab = images[0], labels[0]
+    for aug_type in AUG_TYPES:
+        p = ha.sample_params(aug_type, ha.rng_for(0, 0, 1), h, w,
+                             apply_prob=1.0)
+        check(np.array_equal(na.apply_family(img, aug_type, p),
+                             px.apply_family(img, aug_type, p))
+              and np.array_equal(na.apply_family_label(lab, aug_type, p),
+                                 ha.apply_family_label(lab, aug_type, p)),
+              f"{aug_type}: the native ops differ from numpy")
+
+        def per_image(fn, reps):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        native = per_image(lambda: na.apply_family(img, aug_type, p), 20)
+        native_label = per_image(
+            lambda: na.apply_family_label(lab, aug_type, p), 20)
+        plain = per_image(lambda: px.apply_family(img, aug_type, p), 3)
+        times[(aug_type, "host")] = (native, native_label, plain)
+        log("augment", f"{aug_type} on the host, 1024x512, applied, one "
+            f"thread: native {native:.3f} ms/image (+ {native_label:.3f} "
+            f"for its label), numpy plain version {plain:.3f} ms/image")
+    return times
 
 
 def ce_float64(logits, labels, out_hw, ignore_index):
@@ -1595,7 +1788,57 @@ def time_da_step(device, card):
     profile_steps(lambda: step(xs, ys, xt),
                   "DA step, bf16, batch 8, FC D, interleaved", card,
                   watch=CE_KERNELS["fwd"] + CE_KERNELS["bwd"])
+    time_da_augmented(device, card, step, labels)
     return ms, peak
+
+
+def time_da_augmented(device, card, step, labels):
+    """The DA step with its source batch prepared from pinned uint8 and
+    augmented on the card (each menu), against the same step with the
+    batch prepared unaugmented, in turns A B C D D C B A: ms/step (CUDA
+    events, the preparation included) and peak memory."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.data.augment import (
+        batch_generator)
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
+
+    rng = np.random.default_rng(7)
+    src = torch.from_numpy(rng.integers(0, 256, (8, 1024, 512, 3),
+                                        dtype=np.uint8)).pin_memory()
+    tgt = torch.from_numpy(rng.integers(0, 256, (8, 1024, 512, 3),
+                                        dtype=np.uint8)).pin_memory()
+    lab = torch.from_numpy(labels).pin_memory()
+    it = iter(range(10**6))
+
+    def one(aug_type):
+        gen = (None if aug_type is None
+               else batch_generator(0, 0, next(it), device))
+        xs, ys = prepare_batch(src, lab, device=device, remap=True,
+                               dtype=torch.bfloat16, aug_type=aug_type,
+                               generator=gen)
+        xt, _ = prepare_batch(tgt, lab, device=device, dtype=torch.bfloat16)
+        step(xs, ys, xt)
+
+    order = (None,) + AUG_TYPES
+    runs = {}
+    for aug_type in order + order[::-1]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = cuda_ms(lambda: one(aug_type), 10, warmup=2)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        runs.setdefault(aug_type, []).append((ms, peak))
+        log("timing", f"DA step + preparation, bf16, batch 8, 1024x512, "
+            f"FC D, source --aug_type {aug_type}: {ms:.3f} ms/step, peak "
+            f"memory {peak:.3f} GiB | {card}")
+    base = sum(r[0] for r in runs[None]) / 2
+    for aug_type in AUG_TYPES:
+        ms = sum(r[0] for r in runs[aug_type]) / 2
+        log("timing", f"DA step + preparation, --aug_type {aug_type}: mean "
+            f"{ms:.3f} ms/step against {base:.3f} unaugmented "
+            f"({ms - base:+.3f} ms, {ms / base:.4f}x); peak "
+            f"{max(r[1] for r in runs[aug_type]):.3f} against "
+            f"{max(r[1] for r in runs[None]):.3f} GiB | {card}")
 
 
 def phase_timing(device, model, card):
@@ -2028,6 +2271,82 @@ def kernel_record(name, source, replaces, launches, max_err, ms, plain_ms,
             "library_ms": library_ms, **extra}
 
 
+def time_steps_against_baseline(device, card, root):
+    """The unaugmented train step and DA step (FC D, 4-phase), bf16, batch
+    8, 1024x512, each with its batches prepared from pinned uint8 by its
+    package's ``prepare_batch``, of the port under ``root`` (A) against
+    this checkout's (B), in turns A B B A: ms/step (CUDA events, the
+    preparation included) and peak memory. Each side builds its own
+    seeded models from its own modules."""
+    import importlib
+
+    import torch
+
+    def modules(side):
+        def get(name):
+            if side == "baseline":
+                return baseline_module(root, name)
+            return importlib.import_module(
+                f"dasemanticsegmentationaml_tpu_torch.{name}")
+        return get
+
+    rng = np.random.default_rng(8)
+    src = torch.from_numpy(rng.integers(0, 256, (8, 1024, 512, 3),
+                                        dtype=np.uint8)).pin_memory()
+    tgt = torch.from_numpy(rng.integers(0, 256, (8, 1024, 512, 3),
+                                        dtype=np.uint8)).pin_memory()
+    lab = torch.from_numpy(rng.integers(0, 35, (8, 1024, 512),
+                                        dtype=np.uint8)).pin_memory()
+    runs = {}
+    for side in ("baseline", "kernel"):
+        get = modules(side)
+        build_bisenet = get("models.bisenet").build_bisenet
+        trainable = get("models.bisenet").trainable_parameters
+        make_optimizer = get("train.optim").make_optimizer
+        prepare = get("data.pipeline").prepare_batch
+        g = build_bisenet(19, device=device,
+                          generator=torch.Generator().manual_seed(0)).train()
+        d = get("models.discriminator").build_discriminator(
+            19, device=device,
+            generator=torch.Generator().manual_seed(2)).train()
+        train_step = get("train.supervised").make_train_step(
+            g, make_optimizer("sgd", trainable(g), 0.01, momentum=0.9,
+                              weight_decay=1e-4), amp_dtype=torch.bfloat16)
+        da_step = get("train.adversarial").make_da_step(
+            g, d, make_optimizer("sgd", trainable(g), 0.01, momentum=0.9,
+                                 weight_decay=5e-4),
+            make_optimizer("adam", d.parameters(), 1e-3, betas=(0.9, 0.99)),
+            lambda_adv=1e-3, amp_dtype=torch.bfloat16)
+
+        def train_one(prepare=prepare, step=train_step):
+            step(*prepare(src, lab, device=device, remap=True,
+                          dtype=torch.bfloat16))
+
+        def da_one(prepare=prepare, step=da_step):
+            xs, ys = prepare(src, lab, device=device, remap=True,
+                             dtype=torch.bfloat16)
+            xt, _ = prepare(tgt, lab, device=device, dtype=torch.bfloat16)
+            step(xs, ys, xt)
+
+        runs[side] = {"train step": train_one, "DA step": da_one}
+    for what in ("train step", "DA step"):
+        ms = {}
+        for side in ("baseline", "kernel", "kernel", "baseline"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t = cuda_ms(runs[side][what], 10, warmup=2)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            ms.setdefault(side, []).append(t)
+            log("baseline", f"{what} + preparation, unaugmented, bf16, batch "
+                f"8, 1024x512, {side}: {t:.3f} ms/step, peak memory "
+                f"{peak:.3f} GiB | {card}")
+        a, b = (sum(ms[k]) / 2 for k in ("baseline", "kernel"))
+        log("baseline", f"{what} + preparation, unaugmented: this checkout "
+            f"{b:.3f} ms/step against the baseline's {a:.3f} ({b / a:.4f}x;"
+            f" turns {ms['baseline'][0]:.3f} {ms['kernel'][0]:.3f} "
+            f"{ms['kernel'][1]:.3f} {ms['baseline'][1]:.3f}) | {card}")
+
+
 def compare_baseline(device, card, root):
     """``--baseline DIR``: the kernels of another version of the port (A,
     ``load_baseline``) against this checkout's (B) on this card, in one
@@ -2039,7 +2358,8 @@ def compare_baseline(device, card, root):
     and its CE kernels' share of device time; then each of the six
     CatBottlenecks of features[2:8] and their six-launch chain
     (``time_stdc``: bf16, batch 8, device and chain time, beside the eager
-    cuDNN modules)."""
+    cuDNN modules); last the unaugmented train and DA steps with their
+    batch preparation, each package's own (``time_steps_against_baseline``)."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
@@ -2071,6 +2391,7 @@ def compare_baseline(device, card, root):
     time_stdc(device, backbone, h, card, {
         "baseline": (base_fs.fold_cat_params, base_fs.fused_cat_bottleneck),
         "kernel": (fs.fold_cat_params, fs.fused_cat_bottleneck)})
+    time_steps_against_baseline(device, card, root)
 
 
 def main(argv=None):
@@ -2093,6 +2414,7 @@ def main(argv=None):
               "False); this script runs only on a card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from dasemanticsegmentationaml_tpu_torch.data import native_augment as na
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
@@ -2111,13 +2433,14 @@ def main(argv=None):
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    libs = (ua, fc, fs, cp, tr)
-    with futures.ThreadPoolExecutor(len(libs)) as pool:
-        for job in [pool.submit(lib._library) for lib in libs]:
+    builds = [lib._library for lib in (ua, fc, fs, cp, tr)] + [na.library]
+    with futures.ThreadPoolExecutor(len(builds)) as pool:
+        for job in [pool.submit(build) for build in builds]:
             job.result()
     sources = ("upsample_argmax", "fused_ce", "fused_stdc", "copy_probe",
                "tile_roll")
-    log("build", f"{', '.join(f'{n}.cu' for n in sources)} built (in "
+    log("build", f"{', '.join(f'{n}.cu' for n in sources)} (nvcc) and "
+        f"native/augment.cpp (g++: {na.library_path()}) built (in "
         f"parallel) and loaded in {time.perf_counter() - t0:.2f} s (set-up)")
     for name in sources:
         for line in BUILD_LOGS.get(name, "").splitlines():
@@ -2141,6 +2464,7 @@ def main(argv=None):
     eval_launches = phase_slice()
     train_launches = phase_train()
     phase_train_parity(device)
+    phase_augment(device, card)
     phase_da()
     phase_da_parity(device)
     times = phase_timing(device, model, card)

@@ -14,19 +14,30 @@ the reference's ``train_DA()`` (train.py:134-299), validating on the
 ``--pretrain_path`` on the val set, printing precision and mIoU like the
 reference's ``val()`` (train.py:24-61).
 
+``--aug_type`` augments the GTA5 training batches (``--dataset GTAV``, or
+the DA source) with one of the reference's menus: on the device, in
+``prepare_batch`` (data/augment.py), or with ``--host_augment True`` on
+the host, in the loader's decode threads (data/host_augment.py, the
+native C++ ops). ``--augment_labels`` warps the labels with the image.
+``--fast_device_geometry`` is accepted and does nothing: its 3-shear
+rotation is a TPU workaround the port does not need. ``--profile_dir``
+writes a ``torch.profiler`` trace of the first training steps.
+
 ``--cuda`` picks the device: ``cpu``, or the index ``n`` of ``cuda:n``;
 without CUDA the latter stops with ``SystemExit``, it never drops to the
-CPU. ``--iter_size > 1`` (supervised), ``--aug_type``, ``--resume``,
-``--profile_dir``, int8, export, the data cache, host augmentation and
-multi-device or multi-process runs stop with
+CPU. ``--iter_size > 1`` (supervised), ``--resume``, int8, export, the
+data cache and multi-device or multi-process runs stop with
 ``SystemExit("...: not ported yet: see ROADMAP.md")``; ``--iter_size > 1``
 with ``--domain_adaptation`` stops with the JAX package's reason.
 
 Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --root <cityscapes> --cuda 0
+      python -m dasemanticsegmentationaml_tpu_torch.cli --dataset GTAV \
+          --root <gta5> --aug_type CS-HF --cuda 0
       python -m dasemanticsegmentationaml_tpu_torch.cli \
           --domain_adaptation True --root_source <gta5> \
-          --root_target <cityscapes> --root <cityscapes> --cuda 0
+          --root_target <cityscapes> --root <cityscapes> --cuda 0 \
+          [--aug_type H-RP [--host_augment True] [--augment_labels True]]
       python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
           --root <cityscapes> --pretrain_path best.pth --cuda 0
 """
@@ -34,10 +45,13 @@ Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
+from .data.augment import batch_generator
 from .data.datasets import CityScapes, GtaV, Subset, train_val_split
+from .data.host_augment import HostAugment
 from .data.pipeline import Loader, prepare_batch
 from .models.bisenet import build_bisenet, trainable_parameters
 from .models.discriminator import build_discriminator
@@ -47,7 +61,7 @@ from .train.optim import make_optimizer
 from .train.supervised import make_train_step, train
 from .utils.checkpoint import make_checkpoint_fn
 from .utils.config import parse_args
-from .utils.logging_util import JsonlLogger, make_writer
+from .utils.logging_util import JsonlLogger, Profiler, make_writer
 from .utils.weights import load_pretrain, load_pretrain_discriminator
 
 NOT_PORTED = "not ported yet: see ROADMAP.md"
@@ -55,6 +69,9 @@ NOT_PORTED = "not ported yet: see ROADMAP.md"
 DA_ITER_SIZE = ("--iter_size > 1 is supervised-only: the 4-phase DA step "
                 "applies the phase-1 update before phase 2, which gradient "
                 "accumulation would defer")
+FAST_GEOMETRY_NOTE = ("--fast_device_geometry: accepted and inert on the "
+                      "port (its 3-shear rotation avoids the TPU's slow "
+                      "gathers; B-GS-R rotates by one gather here)")
 
 
 def resolve_device(cuda: str) -> torch.device:
@@ -84,13 +101,10 @@ def check_ported(args) -> None:
         raise SystemExit(DA_ITER_SIZE)
     unported = {
         "--iter_size > 1": args.iter_size > 1,
-        "--aug_type": args.aug_type is not None,
-        "--profile_dir": args.profile_dir,
         "--quantize_int8": args.quantize_int8,
         "--export_model": args.export_model,
         "--data_cache": args.data_cache,
         "--resume": args.resume,
-        "--host_augment True": args.host_augment,
         "multi-process runs": (args.coordinator_address is not None
                                or (args.num_processes or 1) > 1),
         "multi-device runs": ((args.num_devices or 1) > 1
@@ -99,6 +113,83 @@ def check_ported(args) -> None:
     for what, requested in unported.items():
         if requested:
             raise SystemExit(f"{what}: {NOT_PORTED}")
+
+
+def resolve_host_augment(aug_type, host_augment, backend,
+                         fast_geometry=False, host_cores=None):
+    """Where does --aug_type run? Returns (host: bool, note: str|None).
+
+    Copied as it stands from the JAX CLI (cli.py:210-278), so that both
+    route alike on every row. Its TPU rows and the figures in them are the
+    JAX package's, measured on a TPU; the port passes its device type,
+    "cuda" or "cpu", for which the answer is ``bool(host_augment)``: unset
+    ("auto") augments on the device. The JAX docstring follows.
+
+    The reference augments on the host in DataLoader workers (reference
+    dataset/GTAV.py:32-59, train.py:465-470); our default is device
+    kernels. The two GEOMETRIC menus are gather-latency-bound on the
+    TPU's serial gather engine — measured 11.9 ms/img (H-RP) / 8.5
+    (B-GS-R) vs a 1.53 ms/img DA train step (tools/probe_warp.py,
+    tools/bench_aug.py) — so 'auto' (--host_augment unset) routes them
+    to the host path (data/host_augment.py, bit-exact Pillow/native-C++
+    math) on TPU backends, EXCEPT when:
+      * --fast_device_geometry already covers it (B-GS-R's 3-shear,
+        1.07 ms/img — the explicitly-requested device path wins), or
+      * the host is too small to beat the device warp (native costs
+        ~29-39 ms/img/core p=0.5, tools/bench_host_aug.py, so <4 cores
+        would CAP the loader below the device path it replaced).
+    An EXPLICIT device request still gets the measured-cost warning
+    instead of a silent 6-8x slowdown."""
+    if aug_type is None:
+        return False, None
+    geometric = aug_type in ("H-RP", "B-GS-R")
+    if not (geometric and backend == "tpu"):
+        return bool(host_augment), None
+    if fast_geometry and aug_type == "B-GS-R":
+        # the 3-shear device rotation was explicitly requested and is
+        # cheap (1.07 ms/img) — auto never overrides it to host
+        if host_augment:
+            return True, ("--host_augment True overrides "
+                          "--fast_device_geometry for B-GS-R (the menu "
+                          "runs on the host; the device flag is inert)")
+        return False, None
+    if host_augment is None:  # auto
+        # callers pass the EFFECTIVE worker parallelism (min of cores
+        # and --num_workers — HostAugment runs inside the Loader's
+        # decode workers, so --num_workers is the real ceiling)
+        cores = host_cores if host_cores is not None \
+            else (os.cpu_count() or 1)
+        if cores >= 4:
+            return True, (
+                f"--aug_type {aug_type}: geometric menus are gather-"
+                f"latency-bound on TPU (8.5-11.9 ms/img measured, "
+                f"tools/probe_warp.py) — augmenting on the HOST "
+                f"({cores} effective aug workers; --host_augment False "
+                f"forces the device kernels)")
+        # few-worker host: the host path would cap the loader BELOW the
+        # device warp (~29-39 ms/img/core vs 8.5-11.9 ms on device)
+        extra = (" or --fast_device_geometry True (3-shear, 1.07 "
+                 "ms/img, ±1 px envelope)" if aug_type == "B-GS-R"
+                 else "")
+        return False, (
+            f"--aug_type {aug_type}: staying on DEVICE — only {cores} "
+            f"effective aug worker(s) (min of host cores and "
+            f"--num_workers), too few to beat the device warp "
+            f"(~29-39 ms/img/core on host vs 8.5-11.9 ms on device); "
+            f"with more cores/workers use --host_augment True{extra}")
+    if not host_augment:
+        if aug_type == "B-GS-R":
+            return False, (
+                "WARNING: --aug_type B-GS-R on device: the rotation "
+                "gather costs ~8.5 ms/img on TPU (vs a 1.53 ms/img DA "
+                "step) — consider --host_augment True, or "
+                "--fast_device_geometry True (3-shear, 1.07 ms/img, "
+                "±1 px envelope)")
+        return False, (
+            "WARNING: --aug_type H-RP on device: the perspective warp "
+            "gather costs ~11.9 ms/img on TPU (vs a 1.53 ms/img DA "
+            "step, tools/probe_warp.py) — consider --host_augment True")
+    return True, None
 
 
 @contextlib.contextmanager
@@ -122,15 +213,36 @@ def main(argv=None):
     check_ported(args)
     device = resolve_device(args.cuda)
     pin = device.type == "cuda"
+    if args.fast_device_geometry:
+        print(FAST_GEOMETRY_NOTE)
+    # HostAugment runs in the loader's decode threads, so --num_workers
+    # caps its parallelism (JAX cli.py:340-344)
+    host_aug, host_aug_note = resolve_host_augment(
+        args.aug_type, args.host_augment, device.type,
+        fast_geometry=args.fast_device_geometry,
+        host_cores=min(os.cpu_count() or 1, max(1, args.num_workers)))
+    if host_aug_note:
+        print(host_aug_note)
+
+    def maybe_host_augment(ds):
+        """--host_augment: the menu runs on the host, in the train
+        loader's decode threads (JAX cli.py:345-353)."""
+        if not host_aug:
+            return ds
+        return HostAugment(ds, args.aug_type, seed=args.seed,
+                           augment_labels=args.augment_labels)
 
     # ---- datasets (reference train.py:444-491) ---------------------------
     if args.dataset == "GTAV":
-        dataset = GtaV(args.root, args.crop_height, args.crop_width,
-                       faithful_resize=args.faithful_resize)
+        dataset = GtaV(args.root, args.aug_type, args.crop_height,
+                       args.crop_width, faithful_resize=args.faithful_resize)
         train_idx, val_idx = train_val_split(len(dataset))
-        train_ds = Subset(dataset, train_idx)
+        # wrap the Subset, so that HostAugment's idx is the split's, as
+        # in JAX (cli.py:360)
+        train_ds = maybe_host_augment(Subset(dataset, train_idx))
         val_ds = Subset(dataset, val_idx)
         remap = True
+        aug_train = None if host_aug else args.aug_type
     else:
         # neither eval-only mode nor DA uses a train split from --root
         train_ds = None if args.domain_shift or args.domain_adaptation \
@@ -141,6 +253,7 @@ def main(argv=None):
                             args.crop_width,
                             faithful_resize=args.faithful_resize)
         remap = False
+        aug_train = None
     loader_val = Loader(val_ds, args.eval_batch_size,
                         num_workers=args.num_workers, pin_memory=pin)
 
@@ -152,13 +265,24 @@ def main(argv=None):
     load_pretrain(model, args.pretrain_path)
     amp_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
 
-    def prepare(batch, remap=remap):
-        images, labels = batch
-        return prepare_batch(images, labels, device=device, remap=remap,
-                             dtype=amp_dtype or torch.float32)
+    def make_prepare(aug_type, remap):
+        """prepare(batch, epoch, it): the batch on the device, augmented
+        by ``aug_type`` with the draws of (seed, epoch, it), as JAX folds
+        epoch and step into its key (cli.py:415-432)."""
+        def prepare(batch, epoch=0, it=0):
+            images, labels = batch
+            generator = (batch_generator(args.seed, epoch, it, device)
+                         if aug_type else None)
+            return prepare_batch(images, labels, device=device, remap=remap,
+                                 dtype=amp_dtype or torch.float32,
+                                 aug_type=aug_type, generator=generator,
+                                 augment_labels=args.augment_labels)
+        return prepare
+
+    prepare_val = make_prepare(None, remap)
 
     def evaluate_fn(m):
-        return evaluate(m, loader_val, args.num_classes, prepare=prepare,
+        return evaluate(m, loader_val, args.num_classes, prepare=prepare_val,
                         device=device, use_fused_kernel=args.use_fused_eval,
                         amp_dtype=amp_dtype)
 
@@ -167,19 +291,31 @@ def main(argv=None):
             # eval-only mode (reference train.py:511,519)
             precision, miou = evaluate_fn(model)
             return {"precision": precision, "miou": miou}
-        if args.domain_adaptation:
-            max_miou = _train_da(args, model, prepare, evaluate_fn,
-                                 amp_dtype, device)
-        else:
-            max_miou = _train_supervised(args, model, train_ds, prepare,
-                                         evaluate_fn, amp_dtype, pin)
+        profiler = Profiler(args.profile_dir) if args.profile_dir else None
+        try:
+            if args.domain_adaptation:
+                source_ds = maybe_host_augment(GtaV(
+                    args.root_source, args.aug_type, args.crop_height,
+                    args.crop_width, faithful_resize=args.faithful_resize))
+                max_miou = _train_da(
+                    args, model, source_ds,
+                    make_prepare(None if host_aug else args.aug_type, True),
+                    make_prepare(None, False), evaluate_fn, amp_dtype,
+                    device, profiler)
+            else:
+                max_miou = _train_supervised(
+                    args, model, train_ds, make_prepare(aug_train, remap),
+                    evaluate_fn, amp_dtype, pin, profiler)
+        finally:
+            if profiler is not None:
+                profiler.close()
         model.eval()
         precision, miou = evaluate_fn(model)
     return {"precision": precision, "miou": miou, "max_miou": max_miou}
 
 
 def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
-                      amp_dtype, pin) -> float:
+                      amp_dtype, pin, profiler) -> float:
     """The supervised branch (JAX cli.py:713-763; reference
     train.py:465-470,501-509). SGD takes weight decay 1e-4, hard-coded as
     the reference does (train.py:504), not ``--weight_decay`` (the DA
@@ -199,23 +335,23 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
         return train(args, model, optimizer, loader_train, prepare=prepare,
                      evaluate_fn=evaluate_fn, train_step=step,
                      writer=writer, logger=logger,
-                     checkpoint_fn=make_checkpoint_fn(args.save_model_path))
+                     checkpoint_fn=make_checkpoint_fn(args.save_model_path),
+                     profiler=profiler)
     finally:
         logger.close()
         if writer is not None:
             writer.close()
 
 
-def _train_da(args, model, prepare, evaluate_fn, amp_dtype, device) -> float:
+def _train_da(args, model, source_ds, prepare_source, prepare_target,
+              evaluate_fn, amp_dtype, device, profiler) -> float:
     """The DA branch (JAX cli.py:601-711; reference train.py:134-299):
-    GTA5 source batches (raw ids remapped) shuffled with ``seed``,
-    Cityscapes target batches shuffled with ``seed + 1``; the
-    discriminator seeded with ``seed + 2``; SGD for G with ``--momentum``
-    and ``--weight_decay`` (train.py:170-171), Adam(0.9, 0.99) for D
-    (train.py:172)."""
+    GTA5 source batches (raw ids remapped, augmented by ``--aug_type``)
+    shuffled with ``seed``, Cityscapes target batches shuffled with
+    ``seed + 1``; the discriminator seeded with ``seed + 2``; SGD for G
+    with ``--momentum`` and ``--weight_decay`` (train.py:170-171),
+    Adam(0.9, 0.99) for D (train.py:172)."""
     pin = device.type == "cuda"
-    source_ds = GtaV(args.root_source, args.crop_height, args.crop_width,
-                     faithful_resize=args.faithful_resize)
     target_ds = CityScapes("train", args.root_target, args.crop_height,
                            args.crop_width,
                            faithful_resize=args.faithful_resize)
@@ -250,12 +386,12 @@ def _train_da(args, model, prepare, evaluate_fn, amp_dtype, device) -> float:
     try:
         return train_da(
             args, model, d_model, g_opt, d_opt, loader_source, loader_target,
-            prepare_source=lambda b: prepare(b, remap=True),
-            prepare_target=lambda b: prepare(b, remap=False),
+            prepare_source=prepare_source, prepare_target=prepare_target,
             evaluate_fn=evaluate_fn, da_step=step, writer=writer,
             logger=logger,
             checkpoint_fn=make_checkpoint_fn(args.save_model_path),
-            lr_mode="nni_faithful" if args.nni_faithful_lr else "reference")
+            lr_mode="nni_faithful" if args.nni_faithful_lr else "reference",
+            profiler=profiler)
     finally:
         logger.close()
         if writer is not None:

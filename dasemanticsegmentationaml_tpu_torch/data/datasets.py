@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -86,11 +86,13 @@ class CityScapes(_PairDataset):
 
 
 class GtaV(_PairDataset):
-    """reference GTAV.py:13-100, without augmentation (evaluation only so
-    far; the JAX GtaV's ``aug_type`` comes with the training slices)."""
+    """reference GTAV.py:13-100. ``aug_type`` names the augmentation menu
+    of its training batches (None | CS-HF | H-RP | B-GS-R), which
+    ``pipeline.prepare_batch`` applies on the device, or
+    ``host_augment.HostAugment`` on the host (JAX datasets.py:106-129)."""
 
-    def __init__(self, root: str, height: int, width: int,
-                 faithful_resize: bool = True):
+    def __init__(self, root: str, aug_type: Optional[str], height: int,
+                 width: int, faithful_resize: bool = True):
         root = os.path.normpath(root)
         image_dir = os.path.join(root, "images")
         label_dir = os.path.join(root, "labels")
@@ -107,6 +109,9 @@ class GtaV(_PairDataset):
             raise ValueError(
                 f"GtaV: {len(images)} images vs {len(labels)} labels")
         super().__init__(zip(images, labels), height, width, faithful_resize)
+        if aug_type not in (None, "CS-HF", "H-RP", "B-GS-R"):
+            raise KeyError(aug_type)
+        self.aug_type = aug_type
 
 
 class Subset:
@@ -121,6 +126,11 @@ class Subset:
 
     def __getitem__(self, idx: int):
         return self.dataset[self.indices[idx]]
+
+    def __getattr__(self, name):
+        """The wrapped dataset's attributes (``set_epoch``, ``aug_type``),
+        as the JAX Subset forwards them."""
+        return getattr(self.dataset, name)
 
 
 def train_val_split(n: int, train_size: float = 0.75, seed: int = 42):

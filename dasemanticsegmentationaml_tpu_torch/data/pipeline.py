@@ -4,8 +4,10 @@ Counterpart of ``dasemanticsegmentationaml_tpu/data/pipeline.py``:
 batches ship as uint8 (a quarter of the bytes of normalised fp32) and are
 normalised where the model runs. The train loader shuffles with the JAX
 package's order, ``np.random.default_rng((seed, epoch)).permutation(n)``
-(JAX pipeline.py:179-184), so both see the same batches. Augmentation and
-the native C++ loader are still to be ported (ROADMAP.md).
+(JAX pipeline.py:179-184), so both see the same batches. Training
+batches of GTA5 are augmented on the device (``augment.py``), or on the
+host by a ``host_augment.HostAugment`` dataset. The native C++ decoder is
+still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ import collections
 import concurrent.futures as futures
 import functools
 import itertools
-from typing import Iterable, Iterator, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .augment import augment_batch
 from .labels import remap_train_ids
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -40,19 +43,33 @@ def normalisation_on(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def prepare_batch(images_u8, labels_u8, *, device: torch.device,
                   remap: bool = False, dtype: torch.dtype = torch.float32,
-                  memory_format: torch.memory_format = torch.contiguous_format
+                  memory_format: torch.memory_format = torch.contiguous_format,
+                  aug_type: Optional[str] = None,
+                  generator: Optional[torch.Generator] = None,
+                  augment_labels: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """uint8 NHWC images + uint8 NHW labels -> normalised NCHW images of
-    ``dtype`` and int32 labels, on ``device`` (JAX pipeline.py:98-125,
-    without augmentation). ``((u8 / 255) - mean) / std`` runs in fp32, in
-    that order; ``remap`` maps raw GTA5 ids to trainIds. From pinned
-    host tensors it only enqueues work: the constants are cached per
-    device (``normalisation_on``, ``labels.py::train_id_lut_on``)."""
+    ``dtype`` and int32 labels, on ``device`` (JAX pipeline.py:98-125).
+    ``aug_type``: augment on the 0-255 float scale first, with parameters
+    drawn by ``generator`` (on ``device``; ``augment.batch_generator``),
+    warping the labels too when ``augment_labels``, as the reference
+    augments PIL images before ToTensor (GTAV.py:87). Then
+    ``((x / 255) - mean) / std`` in fp32, in that order, and ``remap``
+    maps raw GTA5 ids to trainIds. From pinned host tensors it only
+    enqueues work: the constants are cached per device
+    (``normalisation_on``, ``labels.py::train_id_lut_on``) and the
+    augmentation's parameters are drawn on the device."""
     device = torch.device(device)
     images = torch.as_tensor(images_u8).to(device, non_blocking=True)
     labels = torch.as_tensor(labels_u8).to(device, non_blocking=True)
     mean, std = normalisation_on(device)
-    imgs = (images.float() / 255.0 - mean) / std
+    imgs = images.float()
+    if aug_type is not None:
+        if generator is None:
+            raise ValueError("augmentation needs a generator")
+        imgs, labels = augment_batch(imgs, labels, aug_type, generator,
+                                     augment_labels)
+    imgs = (imgs / 255.0 - mean) / std
     imgs = imgs.permute(0, 3, 1, 2).contiguous(memory_format=memory_format)
     imgs = imgs.to(dtype)
     labels = remap_train_ids(labels) if remap else labels.to(torch.int32)
@@ -92,7 +109,12 @@ class Loader:
         return -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int) -> None:
+        """Shuffle for ``epoch``, and pass it on to a dataset that keys
+        its draws by it (``HostAugment``, through a ``Subset``; JAX
+        pipeline.py:171-177)."""
         self._epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def order(self) -> np.ndarray:
         """The dataset indices of this epoch, in the order they are

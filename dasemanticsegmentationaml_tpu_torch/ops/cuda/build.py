@@ -6,7 +6,8 @@ per build. The library lands in ``build/torch_kernels/`` beside the
 package, named by a hash of the source, the local headers it includes and
 the flags, so an edited source or header is rebuilt and an unchanged one
 is loaded as it is. Nothing is compiled when a module is imported: the
-first launch builds.
+first launch builds. ``source_digest`` and ``build_library`` also build
+the host library of ``native/`` with g++ (``data/native_augment.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -54,10 +55,10 @@ def nvcc_path() -> str:
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
-def source_digest(src: str) -> str:
+def source_digest(src: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
     """16 hex digits of SHA-256 over the source, every local header it
     includes (``#include "..."``, found beside the including file, each
-    once, recursively) and the nvcc flags."""
+    once, recursively) and the compiler flags."""
     h = hashlib.sha256()
     seen = set()
     pending = [os.path.abspath(src)]
@@ -72,8 +73,29 @@ def source_digest(src: str) -> str:
         pending += [os.path.normpath(os.path.join(os.path.dirname(path),
                                                   inc.decode()))
                     for inc in _LOCAL_INCLUDE.findall(text)]
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
+
+
+def build_library(command: Sequence[str], src: str,
+                  so_path: str) -> Optional[str]:
+    """Compile ``src`` into ``so_path`` with ``command`` (the compiler and
+    its flags) unless that file exists; return the compiler's output, or
+    None when nothing was built. Raises with the compiler's message on a
+    failed build. The library is written under a temporary name and
+    renamed, so a process never loads a half-written file."""
+    if os.path.exists(so_path):
+        return None
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [*command, "-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{os.path.basename(cmd[0])} failed with code "
+            f"{proc.returncode}: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so_path)
+    return proc.stdout + proc.stderr
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -87,19 +109,11 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        digest = source_digest(src)
-        so_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        if not os.path.exists(so_path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so_path}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {proc.returncode}: "
-                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
-            os.replace(tmp, so_path)
+        so_path = os.path.join(BUILD_DIR,
+                               f"lib{name}_{source_digest(src)}.so")
+        output = build_library([nvcc_path(), *NVCC_FLAGS], src, so_path)
+        if output is not None:
+            BUILD_LOGS[name] = output
         lib = ctypes.CDLL(so_path)
         _LIBS[name] = lib
         return lib

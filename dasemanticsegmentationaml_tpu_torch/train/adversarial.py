@@ -184,11 +184,13 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
              prepare_source, prepare_target, evaluate_fn, da_step: Callable,
              writer=None, logger=None,
              checkpoint_fn: Optional[Callable] = None,
-             lr_mode: str = "reference") -> float:
+             lr_mode: str = "reference", profiler=None) -> float:
     """Epoch loop (JAX :311-457; reference train.py:176-299); returns the
     best validation mIoU.
 
-    prepare_*(batch) -> (images, labels) on the device; evaluate_fn(g) ->
+    prepare_*(batch, epoch, it) -> (images, labels) on the device (the
+    epoch and step key the source batch's augmentation); profiler: its
+    ``step()`` is called after each step; evaluate_fn(g) ->
     (precision, miou), called with G in eval mode and G restored to train
     mode after; checkpoint_fn(model, name, dataparallel_prefix=False).
     lr_mode: 'reference' (each optimizer compounds its own poly schedule)
@@ -229,13 +231,15 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
                                                 loader_target)):
                 if max_steps is not None and it >= max_steps:
                     break
-                src_images, src_labels = prepare_source(src)
-                tgt_images, _ = prepare_target(tgt)
+                src_images, src_labels = prepare_source(src, epoch, it)
+                tgt_images, _ = prepare_target(tgt, epoch, it)
                 yield src_images, src_labels, tgt_images
 
         for src_images, src_labels, tgt_images in device_prefetch(
                 prepared_batches()):
             m = da_step(src_images, src_labels, tgt_images)
+            if profiler is not None:
+                profiler.step()
             metrics.append(torch.stack([m["loss"], m["loss_G"],
                                         m["loss_adv"]]))
             n_images += src_images.shape[0]

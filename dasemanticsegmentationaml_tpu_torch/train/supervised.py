@@ -90,11 +90,13 @@ def make_train_step(model, optimizer, *, ohem: Optional[dict] = None,
 
 def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
           train_step: Callable, writer=None, logger=None,
-          checkpoint_fn: Optional[Callable] = None):
+          checkpoint_fn: Optional[Callable] = None, profiler=None):
     """Epoch loop with the reference's bookkeeping (JAX
     supervised.py:116-204; reference train.py:63-120).
 
-    prepare(batch) -> (images, labels) on the device; evaluate_fn(model) ->
+    prepare(batch, epoch, it) -> (images, labels) on the device (the
+    epoch and step key the batch's augmentation); profiler: its ``step()``
+    is called after each step; evaluate_fn(model) ->
     (precision, miou), called with the model in eval mode, which is
     restored to train mode afterwards (otherwise BN would either stay
     frozen or learn the val set); checkpoint_fn(model, name) writes
@@ -117,10 +119,12 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
             for it, batch in enumerate(loader_train):
                 if max_steps is not None and it >= max_steps:
                     break
-                yield prepare(batch)
+                yield prepare(batch, epoch, it)
 
         for images, labels in device_prefetch(prepared_batches()):
             losses.append(train_step(images, labels))
+            if profiler is not None:
+                profiler.step()
             n_images += images.shape[0]
             step_count += 1
         # one readback per epoch: a per-step .item() would wait for the

@@ -90,7 +90,9 @@ _FLAGS = (
      "DA: the generator's SGD weight decay"),
     ("--lambda_adv_target1", float, 0.001, None,
      "DA: weight of the adversarial loss on the generator"),
-    ("--aug_type", str, None, None, "training augmentation; " + _TODO),
+    ("--aug_type", str, None, None,
+     "GTA5 training augmentation: CS-HF | H-RP | B-GS-R (reference "
+     "GTAV.py:42-46), on the device unless --host_augment True"),
     ("--depthwise", str2bool, False, None,
      "DA: depthwise-separable discriminator"),
     ("--batch_norm", str2bool, False, None,
@@ -99,9 +101,13 @@ _FLAGS = (
      "compute dtype: bfloat16 = torch.autocast, float32 = no TF32"),
     ("--faithful_resize", str2bool, True, None,
      "reproduce the reference's PIL (h, w) transposition"),
-    ("--augment_labels", str2bool, False, None, _TODO),
-    ("--fast_device_geometry", str2bool, False, None, _TODO),
-    ("--host_augment", str2bool_auto, None, None, _TODO),
+    ("--augment_labels", str2bool, False, None,
+     "warp the labels with the image (the reference leaves them)"),
+    ("--fast_device_geometry", str2bool, False, None,
+     "accepted and inert: the TPU's 3-shear rotation is not ported"),
+    ("--host_augment", str2bool_auto, None, None,
+     "True: --aug_type on the host (native C++, in the loader's threads); "
+     "False or unset: on the device"),
     ("--sync_bn", str2bool, True, None, _TODO),
     ("--num_devices", int, None, None, "more than 1: " + _TODO),
     ("--spatial_devices", int, 1, None, "more than 1: " + _TODO),
@@ -136,7 +142,8 @@ _FLAGS = (
     ("--jsonl_log", str, None, None, "per-epoch JSONL log file"),
     ("--tensorboard", str2bool, True, None,
      "TensorBoard scalars under runs/ (training)"),
-    ("--profile_dir", str, None, None, _TODO),
+    ("--profile_dir", str, None, None,
+     "write a torch.profiler trace of the first training steps here"),
     ("--max_steps_per_epoch", int, None, None,
      "cap the steps of each epoch"),
 )

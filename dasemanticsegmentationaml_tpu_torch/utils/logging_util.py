@@ -1,12 +1,12 @@
-"""Observability: TB-compatible scalars + structured JSONL.
+"""Observability: TB-compatible scalars, structured JSONL, a trace.
 
 ``JsonlLogger`` and ``make_writer`` are copied from
 ``dasemanticsegmentationaml_tpu/utils/logging_util.py`` (:18-56), which the
 port may not import. The reference logs tensorboardX scalars named
 loss_step / epoch/loss_epoch_train / epoch/precision_val / 'epoch/miou val'
-(reference train.py:98,103,119-120); the names are kept. The JAX
-``Profiler`` wraps ``jax.profiler`` and is not ported (``--profile_dir``
-stops).
+(reference train.py:98,103,119-120); the names are kept. ``Profiler`` is
+the ``torch.profiler`` counterpart of the JAX one (:59-86), behind
+``--profile_dir``.
 """
 
 from __future__ import annotations
@@ -54,3 +54,41 @@ def make_writer(enabled: bool, comment: str = ""):
         from .tb_writer import EventWriter, default_logdir
 
         return EventWriter(default_logdir(comment))
+
+
+class Profiler:
+    """A ``torch.profiler`` trace of the start of a run (JAX
+    logging_util.py:59-86). The trainers call ``step()`` after each step:
+    the first call starts the trace and the ``num_steps``-th stops it
+    (``close()`` stops it earlier), which writes it to ``trace_dir`` as a
+    Chrome trace (``*.pt.trace.json``, read by TensorBoard's profile
+    plugin). The card's kernels are recorded when CUDA is available."""
+
+    def __init__(self, trace_dir: Optional[str], num_steps: int = 8):
+        self.trace_dir = trace_dir
+        self.num_steps = num_steps
+        self._prof = None
+        self._count = 0
+
+    def step(self):
+        if self.trace_dir is None:
+            return
+        if self._prof is None and self._count == 0:
+            import torch
+
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    self.trace_dir))
+            self._prof.start()
+        self._count += 1
+        if self._prof is not None and self._count >= self.num_steps:
+            self.close()
+
+    def close(self):
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None

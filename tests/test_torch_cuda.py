@@ -188,23 +188,104 @@ def _sync_debug(mode):
 
 @pytest.mark.cuda
 def test_prepare_batch_does_not_wait_for_the_stream(cuda_device):
-    """From pinned host tensors, ``prepare_batch`` (GTA5's remap included)
-    only enqueues work once its per-device constants exist: no call in it
-    synchronizes."""
+    """From pinned host tensors, ``prepare_batch`` (GTA5's remap included,
+    and each augmentation menu with its labels warped) only enqueues work
+    once its per-device constants exist: no call in it synchronizes, the
+    menus' draws on the card and their 8x8 solves included."""
+    from dasemanticsegmentationaml_tpu_torch.data.augment import (
+        batch_generator)
     from dasemanticsegmentationaml_tpu_torch.data.labels import train_id_lut
     from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
         prepare_batch)
 
     images, labels = _pinned_batch(0)
-    prepare_batch(images, labels, device=cuda_device, remap=True)
+    menus = (None, "CS-HF", "H-RP", "B-GS-R")
+
+    def prepare(aug_type, it):
+        generator = (None if aug_type is None
+                     else batch_generator(0, 0, it, cuda_device))
+        return prepare_batch(images, labels, device=cuda_device, remap=True,
+                             dtype=torch.bfloat16, aug_type=aug_type,
+                             generator=generator, augment_labels=True)
+
+    for aug_type in menus:
+        prepare(aug_type, 0)
     with _sync_debug("error"):
-        for _ in range(3):
-            x, y = prepare_batch(images, labels, device=cuda_device,
-                                 remap=True, dtype=torch.bfloat16)
+        out = {aug_type: [prepare(aug_type, it) for it in range(3)]
+               for aug_type in menus}
     torch.cuda.synchronize()
+    x, y = out[None][-1]
     assert x.shape == (2, 3, 64, 128) and x.dtype == torch.bfloat16
     want = train_id_lut()[labels.numpy()].astype(np.int32)
     np.testing.assert_array_equal(y.cpu().numpy(), want)
+    train_ids = set(train_id_lut().tolist())
+    for aug_type in menus[1:]:
+        for x, y in out[aug_type]:
+            assert x.shape == (2, 3, 64, 128) and x.dtype == torch.bfloat16
+            assert bool(torch.isfinite(x.float()).all())
+            assert set(torch.unique(y).tolist()) <= train_ids
+
+
+#: the training path's bound (tests/test_torch_augment.py): images within
+#: 1e-2 on the 0-255 scale, labels identical, each on at least this share
+#: of the pixels; the rest are float32 floor and round ties of the warp
+AUG_SHARE = 0.999
+
+
+def _aug_batch(seed, n=4, h=64, w=128):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (n, h, w, 3),
+                                          dtype=np.uint8)).float(),
+            torch.from_numpy(rng.integers(0, 35, (n, h, w), dtype=np.uint8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aug_type", ["CS-HF", "H-RP", "B-GS-R"])
+def test_augment_on_card_equals_cpu(cuda_device, aug_type):
+    """Each menu on the card against the same function on the CPU with
+    the same explicit parameters. Training path (a batch, labels warped
+    too): within ``AUG_SHARE``. Pil-exact replay (one sample): CS-HF and
+    B-GS-R bit-identical; H-RP on at most 1e-3 of the pixels, by at most
+    1, with identical labels; the card's 8x8 solves within 1e-4 of the
+    CPU's (relative to the largest coefficient)."""
+    from dasemanticsegmentationaml_tpu_torch.data import augment as aug
+    from dasemanticsegmentationaml_tpu_torch.data import host_augment
+
+    imgs, labels = _aug_batch(0)
+    n, h, w = labels.shape
+    params = aug.sample_params(aug_type, n, h, w,
+                               torch.Generator().manual_seed(1),
+                               apply_prob=0.75)
+    on_card = {k: v.to(cuda_device) for k, v in params.items()}
+    want = aug.apply_params(imgs, labels, aug_type, params,
+                            augment_labels=True)
+    got = aug.apply_params(imgs.to(cuda_device), labels.to(cuda_device),
+                           aug_type, on_card, augment_labels=True)
+    img_share = ((got[0].cpu() - want[0]).abs() <= 1e-2).float().mean()
+    label_share = (got[1].cpu() == want[1]).float().mean()
+    assert img_share >= AUG_SHARE and label_share >= AUG_SHARE, (
+        img_share, label_share)
+    if aug_type == "H-RP":
+        coeffs = aug.perspective_coeffs(on_card["start"], on_card["end"])
+        err = (coeffs.cpu() - params["coeffs"]).abs().max(dim=1).values
+        scale = params["coeffs"].abs().max(dim=1).values
+        assert bool((err <= 1e-4 * scale).all()), (err, scale)
+
+    for i in range(n):
+        p = host_augment.sample_params(aug_type, host_augment.rng_for(2, 0, i),
+                                       h, w, apply_prob=1.0)
+        want = aug.apply_family_with_params(imgs[i], labels[i], aug_type, p,
+                                            augment_labels=True)
+        got = aug.apply_family_with_params(
+            imgs[i].to(cuda_device), labels[i].to(cuda_device), aug_type, p,
+            augment_labels=True)
+        d = (got[0].cpu() - want[0]).abs()
+        if aug_type == "H-RP":
+            assert (d > 0).float().mean() <= 1e-3 and d.max() <= 1.0, (
+                i, (d > 0).float().mean(), d.max())
+        else:
+            assert not d.any(), (i, d.max())
+        assert torch.equal(got[1].cpu(), want[1]), i
 
 
 @pytest.mark.cuda

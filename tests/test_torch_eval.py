@@ -173,7 +173,7 @@ def test_datasets_match_jax(tmp_path):
         for i in range(len(got)):
             for g, w in zip(got[i], want[i]):
                 np.testing.assert_array_equal(g, w)
-    got = datasets.GtaV(gta, H, W, faithful_resize=False)
+    got = datasets.GtaV(gta, None, H, W, faithful_resize=False)
     want = jax_datasets.GtaV(gta, None, H, W, faithful_resize=False)
     assert got.pairs == want.pairs
     np.testing.assert_array_equal(got[0][1], want[0][1])
@@ -231,16 +231,18 @@ def test_domain_shift_cli_matches_jax(tmp_path, dataset):
 
 @pytest.mark.parametrize("flags", [
     ["--iter_size", "2"],
-    ["--aug_type", "CS-HF"],
+    ["--spatial_devices", "2"],
     ["--resume", "runs/ckpt"],
-    ["--profile_dir", "runs/trace"],
+    ["--coordinator_address", "localhost:1234"],
     ["--domain_adaptation", "True", "--iter_size", "2"],
     ["--quantize_int8", "True"],
     ["--export_model", "model.bin"],
     ["--data_cache", "cache"],
     ["--num_processes", "2"],
     ["--num_devices", "2"],
-    ["--host_augment", "True"],
+    # the augmentation and profile flags are ported; the stops stay
+    ["--aug_type", "H-RP", "--host_augment", "True", "--profile_dir",
+     "runs/trace", "--resume", "runs/ckpt"],
 ])
 def test_cli_stops_on_unported_paths(flags):
     argv = ["--domain_shift", "True", "--cuda", "cpu"] + flags

@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         [PKG], prefix="dasemanticsegmentationaml_tpu_torch."))
     assert {f"dasemanticsegmentationaml_tpu_torch.{m}" for m in (
-        "cli", "ops.losses", "ops.schedules", "ops.cuda.fused_ce",
+        "cli", "data.augment", "data.augment_pil_exact",
+        "data.host_augment", "data.native_augment", "ops.losses",
+        "ops.schedules", "ops.cuda.fused_ce",
         "ops.cuda.fused_stdc", "ops.cuda.copy_probe", "ops.cuda.tile_roll",
         "ops.norm", "models.discriminator", "tools", "tools.probe_copy",
         "tools.roll_repro", "train.adversarial", "train.optim",
