@@ -20,8 +20,10 @@ preparation, in turns A B B A; nothing else runs (``compare_baseline``).
 2. build       -- compiles csrc/upsample_argmax.cu, csrc/fused_ce.cu,
                   csrc/fused_stdc.cu, csrc/copy_probe.cu and csrc/tile_roll.cu
                   with nvcc for sm_90a, one nvcc each, and native/augment.cpp
-                  (the host augmentation) with g++, all at once; prints
-                  ptxas.
+                  (the host augmentation) and native/loader.cpp (the
+                  decoder) with g++, all at once; prints ptxas, and whether
+                  png.h and jpeglib.h are on g++'s include path (with them
+                  the decoder must build; without, decode runs on PIL).
 3. kernel      -- the fused upsample+argmax kernel against its plain PyTorch
                   version on the card, bit for bit, on random-normal,
                   tie-heavy and non-finite (NaN, +-inf, an all-NaN pixel)
@@ -98,7 +100,29 @@ preparation, in turns A B B A; nothing else runs (``compare_baseline``).
 15. da-parity  -- one fp32 DA step (DW+BN discriminator) at 2x3x1024x512 on
                   the card against the same step on the CPU (TF32 off) and in
                   fp64 on the CPU.
-16. timing     -- CUDA-event times of every kernel and of its plain version
+16. resume     -- the supervised CLI at batch 8, 1024x512, fp32, 3 steps an
+                  epoch, through one --data_cache (the first run builds
+                  it), with --iter_size 1 and 2: a straight 4-epoch run
+                  that keeps its own epoch-2 state, a branch resumed from
+                  it (epoch 3 again from the same state), and a run that
+                  dies as epoch 3 starts, resumed with --resume
+                  <save>/state (with 2 the saved state holds half an
+                  accumulation). Every restored model, optimizer and
+                  accumulator equals its file bit for bit; 3 + 3 CE
+                  launches per mini-step in each run (counts reset before,
+                  read after); the branch within loss rtol 1e-4 and 0.02 of
+                  its epoch's update (global l2) of the straight run; the
+                  died + resumed run's distance printed (the card's
+                  backward sums in no fixed order, so two runs part from
+                  the second step on); the state's save and restore timed,
+                  its size printed.
+17. da-resume  -- the DA CLI (FC D, fp32, batch 8, 1024x512, 2 steps an
+                  epoch), the same four runs over 3 epochs with the death
+                  as epoch 2 starts: GTA5_1 / latest and GTA5_1_D1 /
+                  latest_D1 states and the marker 1 left, G, D and both
+                  optimizers restored bit for bit, the branch's epoch
+                  within loss_seg rtol 1e-3 and loss_D1 5e-3.
+18. timing     -- CUDA-event times of every kernel and of its plain version
                   (the upsample+argmax, CE and CatBottleneck kernels and
                   their plain version also by their device time alone,
                   from the profiler's kernel sums; upsample+argmax beside
@@ -114,6 +138,13 @@ preparation, in turns A B B A; nothing else runs (``compare_baseline``).
                   and
                   torch.profiler passes: device busy share, top kernels and
                   the CE kernels' share of the train and DA steps.
+19. loader     -- the card's host: os.cpu_count(); 16 Cityscapes-sized
+                  pairs (2048x1024 PNG image + label) and 4 JPEGs decoded to
+                  1024x512 by the native decoder and by PIL, bit for bit;
+                  ms per pair on one thread; the Loader's images/s at batch
+                  8 with 1, 4 and 8 workers, native and PIL; the
+                  --data_cache build and warm read; beside the train step's
+                  ms per image.
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record: each kernel's launches on its
@@ -129,6 +160,7 @@ eager cuDNN modules' too (``eager_ms``, ``eager_device_ms``: no one
 PyTorch call computes a CatBottleneck, so ``library_ms`` stays null). The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import functools
 import json
@@ -1076,8 +1108,6 @@ def phase_train():
 
     from dasemanticsegmentationaml_tpu_torch import cli
     from dasemanticsegmentationaml_tpu_torch.models.bisenet import BiSeNet
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
     from dasemanticsegmentationaml_tpu_torch.utils.weights import (
         load_reference_state)
 
@@ -1094,13 +1124,11 @@ def phase_train():
                 "--dtype", "bfloat16", "--cuda", "0",
                 "--tensorboard", "False", "--save_model_path", save,
                 "--jsonl_log", log_path]
-        fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+        reset_ce_counts()
         t0 = time.perf_counter()
         res = cli.main(argv)
         secs = time.perf_counter() - t0
-        launches = {"fused_ce_fwd": fc.FWD_LAUNCHES,
-                    "fused_ce_bwd": fc.BWD_LAUNCHES,
-                    "upsample_argmax": ua.LAUNCHES}
+        launches = ce_counts()
         with open(log_path) as f:
             losses = [json.loads(line)["loss"] for line in f]
         steps = epochs * steps_per_epoch
@@ -1172,8 +1200,6 @@ def phase_da():
     import torch
 
     from dasemanticsegmentationaml_tpu_torch import cli
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     epochs = 2
     launches_by_run = {}
@@ -1197,13 +1223,11 @@ def phase_da():
                     "--dtype", "bfloat16", "--cuda", "0",
                     "--tensorboard", "False", "--save_model_path", save,
                     "--jsonl_log", log_path] + flags
-            fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+            reset_ce_counts()
             t0 = time.perf_counter()
             res = cli.main(argv)
             secs = time.perf_counter() - t0
-            launches = {"fused_ce_fwd": fc.FWD_LAUNCHES,
-                        "fused_ce_bwd": fc.BWD_LAUNCHES,
-                        "upsample_argmax": ua.LAUNCHES}
+            launches = ce_counts()
             with open(log_path) as f:
                 rows = [json.loads(line) for line in f]
             seg = [r["loss_seg"] for r in rows]
@@ -1244,8 +1268,6 @@ def train_gtav_augmented(root, gta):
     """The supervised CLI on the GTA5 tree (12 train images, 4 val) with
     CS-HF on the card, batch 8, bf16, 1 step; returns its launch counts."""
     from dasemanticsegmentationaml_tpu_torch import cli
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
-    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     log_path = os.path.join(root, "gtav.jsonl")
     argv = ["--dataset", "GTAV", "--root", gta, "--aug_type", "CS-HF",
@@ -1253,13 +1275,11 @@ def train_gtav_augmented(root, gta):
             "--dtype", "bfloat16", "--cuda", "0", "--tensorboard", "False",
             "--save_model_path", os.path.join(root, "ck_gtav"),
             "--jsonl_log", log_path]
-    fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+    reset_ce_counts()
     t0 = time.perf_counter()
     res = cli.main(argv)
     secs = time.perf_counter() - t0
-    launches = {"fused_ce_fwd": fc.FWD_LAUNCHES,
-                "fused_ce_bwd": fc.BWD_LAUNCHES,
-                "upsample_argmax": ua.LAUNCHES}
+    launches = ce_counts()
     with open(log_path) as f:
         losses = [json.loads(line)["loss"] for line in f]
     log("da", f"supervised CLI, --dataset GTAV --aug_type CS-HF, batch 8, "
@@ -1623,6 +1643,534 @@ def phase_da_parity(device):
     check(d_l2 < 0.25, f"D global l2 {d_l2}")
     check(rs_l2 < 0.05, f"running statistics global l2 {rs_l2}")
     check(n_frozen >= 7, f"only {n_frozen} frozen leaves")
+
+
+class RunDied(Exception):
+    """Ends a CLI run as an epoch starts: a run that died there."""
+
+
+def run_cli(argv, die_at=None):
+    """``cli.main(argv)``; with ``die_at`` the run dies as epoch
+    ``die_at`` starts (``Loader.set_epoch`` raises), after every
+    checkpoint of the epoch before. Returns the result, or None when it
+    died."""
+    from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import Loader
+
+    set_epoch = Loader.set_epoch
+
+    def dying(self, epoch):
+        if epoch == die_at:
+            raise RunDied(epoch)
+        set_epoch(self, epoch)
+
+    if die_at is not None:
+        Loader.set_epoch = dying
+    try:
+        return cli.main(argv)
+    except RunDied:
+        return None
+    finally:
+        Loader.set_epoch = set_epoch
+
+
+def same_tree(a, b):
+    """Nested dicts and lists of tensors and plain values, bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+@contextlib.contextmanager
+def state_probes(keep_epoch=None):
+    """While open: every restore by ``cli.maybe_resume`` is recorded as
+    (alias, start epoch, seconds, whether the module, optimizer and
+    accumulator then equal the file's state bit for bit), and every save
+    as the seconds of its device-to-host copy (``checkpoint.train_state``)
+    and of its write (``state_io.save_train_state``). With
+    ``keep_epoch``, each time the marker reads that epoch the state
+    directory is copied to ``<dir>_kept``: the run's own state at the end
+    of that epoch."""
+    import shutil
+
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.utils import checkpoint, state_io
+
+    probes = {"restores": [], "to_host_s": [], "write_s": []}
+    real_resume, real_state = cli.maybe_resume, checkpoint.train_state
+    real_save, real_marker = (state_io.save_train_state,
+                              state_io.write_epoch_marker)
+
+    def resume(args, module, optimizer, accumulator=None, alias="latest"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = real_resume(args, module, optimizer, accumulator, alias)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if args.resume:
+            saved = state_io.restore_train_state(args.resume, alias)
+            now = state_io.to_host({
+                "model": module.state_dict(),
+                "optimizer": optimizer.state_dict(),
+                "accumulator": (None if accumulator is None
+                                else accumulator.state_dict())})
+            same = all(same_tree(saved[k], now[k]) for k in now)
+            probes["restores"].append((alias, start, secs, same))
+        return start
+
+    def train_state(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_state(*args, **kw)
+        probes["to_host_s"].append(time.perf_counter() - t0)
+        return out
+
+    def save(directory, name, state):
+        t0 = time.perf_counter()
+        out = real_save(directory, name, state)
+        probes["write_s"].append(time.perf_counter() - t0)
+        return out
+
+    def marker(directory, epoch):
+        real_marker(directory, epoch)
+        if epoch == keep_epoch:
+            shutil.copytree(directory, directory + "_kept",
+                            dirs_exist_ok=True)
+
+    cli.maybe_resume, checkpoint.train_state = resume, train_state
+    state_io.save_train_state = save
+    state_io.write_epoch_marker = marker
+    try:
+        yield probes
+    finally:
+        cli.maybe_resume, checkpoint.train_state = real_resume, real_state
+        state_io.save_train_state = real_save
+        state_io.write_epoch_marker = real_marker
+
+
+def update_l2(final, other, init):
+    """||other - final|| / ||final - init|| over the weights (the running
+    statistics and counters left out), in fp64."""
+    diff = upd = 0.0
+    for key, a in final.items():
+        if key.endswith(("running_mean", "running_var",
+                         "num_batches_tracked")):
+            continue
+        a = a.double().cpu()
+        diff += float((other[key].double().cpu() - a).pow(2).sum())
+        upd += float((a - init[key].double().cpu()).pow(2).sum())
+    return (diff / upd) ** 0.5
+
+
+def ce_counts():
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+
+    return {"fused_ce_fwd": fc.FWD_LAUNCHES, "fused_ce_bwd": fc.BWD_LAUNCHES,
+            "upsample_argmax": ua.LAUNCHES}
+
+
+def reset_ce_counts():
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+
+    fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+
+
+def straight_and_resumed(argv, root, die_at, aliases, what):
+    """Four runs of ``argv``, each with its CE and eval launches counted
+    (reset before, read after): ``straight``, which keeps a copy of its
+    own state at the end of epoch ``die_at - 1``; ``branch``, resumed
+    from that copy (it runs the straight run's last epochs again from the
+    very same state); ``died``, which dies as epoch ``die_at`` starts;
+    and ``resumed``, resumed from what ``died`` left. Returns, per run,
+    the per-epoch log rows, the launches, the state probes and the final
+    states ``aliases``; the kept states; and the states ``died`` left."""
+    from dasemanticsegmentationaml_tpu_torch.utils import state_io
+
+    out = {}
+    kept_dir = os.path.join(root, "straight", "state_kept")
+    for kind in ("straight", "branch", "died", "resumed"):
+        save = os.path.join(root, "resumed" if kind == "died" else kind)
+        log_path = save + ".jsonl"
+        run = argv + ["--save_model_path", save, "--jsonl_log", log_path]
+        state_dir = os.path.join(save, "state")
+        if kind == "branch":
+            run += ["--resume", kept_dir]
+        elif kind == "resumed":
+            run += ["--resume", state_dir]
+        reset_ce_counts()
+        t0 = time.perf_counter()
+        with state_probes(keep_epoch=(die_at - 1 if kind == "straight"
+                                      else None)) as probes:
+            res = run_cli(run, die_at if kind == "died" else None)
+        secs = time.perf_counter() - t0
+        launches = ce_counts()
+        with open(log_path) as f:
+            rows = [json.loads(line) for line in f]
+        log(what, f"{kind}: epochs {[r['epoch'] for r in rows]} in "
+            f"{secs:.2f} s host time (set-up, validation and checkpoints "
+            f"included); launches {launches}; {res}")
+        check((res is None) == (kind == "died"), f"{kind} run: {res}")
+        check(launches["upsample_argmax"] > 0,
+              "validation did not launch upsample_argmax")
+        out[kind] = {"rows": rows, "launches": launches, "probes": probes,
+                     "dir": state_dir}
+        if kind == "died":
+            check(state_io.latest_epoch_marker(state_dir) == die_at - 1,
+                  "the dying run's marker")
+            out["died_state"] = {a: state_io.restore_train_state(
+                state_dir, a) for a in aliases}
+            out["died_files"] = sorted(os.listdir(state_dir))
+        else:
+            out[kind]["states"] = {a: state_io.restore_train_state(
+                state_dir, a) for a in aliases}
+        if kind == "straight":
+            check(state_io.latest_epoch_marker(kept_dir) == die_at - 1,
+                  "the straight run's kept marker")
+            out["kept"] = {a: state_io.restore_train_state(kept_dir, a)
+                           for a in aliases}
+    for kind in ("branch", "resumed"):
+        restores = out[kind]["probes"]["restores"]
+        check([(r[0], r[1]) for r in restores]
+              == [(a, die_at) for a in aliases if a.startswith("latest")],
+              f"{kind}: restores {restores}")
+        check(all(r[3] for r in restores),
+              f"{kind}: a restored state is not the saved one")
+    return out
+
+
+def phase_resume(device, card):
+    """--resume and --iter_size through the supervised CLI at full width:
+    batch 8, 1024x512, fp32 (TF32 off), 3 steps an epoch, checkpoint and
+    validation every epoch, every run through one --data_cache (the
+    first run builds it), with --iter_size 1 and 2 (straight_and_resumed:
+    4 epochs straight, the last resumed from the straight run's own
+    epoch-2 state, and a run that dies as epoch 3 starts, resumed; with
+    --iter_size 2 the epoch-2 state holds mini-step 1 of an accumulation,
+    9 mini-steps). Every restore equals its file bit for bit and starts at
+    epoch 3; 3 + 3 CE launches per mini-step in every run. The card's
+    backward does not sum in a fixed order, so two runs of the same flags
+    part from the second step on: the branch (one epoch from one state)
+    is held to the card-step bounds against the straight run (its loss
+    within rtol 1e-4, its weights within 0.02 of that epoch's update in
+    global l2); the died + resumed run's distance from the straight one is
+    printed beside the died run's (the card's own spread over the same
+    epochs). The save (device-to-host copy, write) and restore are timed
+    and the size of latest.pt printed."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet)
+
+    steps_per_epoch, epochs, die_at = 3, 4, 3
+    init = build_bisenet(19, device="cpu", generator=torch.Generator()
+                         .manual_seed(0)).state_dict()
+    with tempfile.TemporaryDirectory() as root:
+        write_cityscapes(root, "train", n=8 * steps_per_epoch, seed=1)
+        write_cityscapes(root, "val", n=2)
+        for iter_size in (1, 2):
+            work = os.path.join(root, f"iter{iter_size}")
+            os.makedirs(work)
+            argv = ["--root", root, "--batch_size", "8",
+                    "--num_epochs", str(epochs),
+                    "--max_steps_per_epoch", str(steps_per_epoch),
+                    "--iter_size", str(iter_size),
+                    "--validation_step", "1", "--checkpoint_step", "1",
+                    "--data_cache", os.path.join(root, "cache"),
+                    "--dtype", "float32", "--cuda", "0",
+                    "--tensorboard", "False"]
+            runs = straight_and_resumed(argv, work, die_at, ["latest"],
+                                        "resume")
+            caches = os.listdir(os.path.join(root, "cache"))
+            check(len(caches) == 2, f"--data_cache entries {caches}, "
+                  f"expected the train and the val split's")
+            for kind, mini_steps in (
+                    ("straight", epochs * steps_per_epoch),
+                    ("branch", (epochs - die_at) * steps_per_epoch),
+                    ("died", die_at * steps_per_epoch),
+                    ("resumed", (epochs - die_at) * steps_per_epoch)):
+                got = runs[kind]["launches"]
+                check(got["fused_ce_fwd"] == 3 * mini_steps
+                      and got["fused_ce_bwd"] == 3 * mini_steps,
+                      f"--iter_size {iter_size} {kind}: CE launches {got}, "
+                      f"expected {3 * mini_steps} each (3 + 3 a mini-step)")
+            acc = runs["died_state"]["latest"]["accumulator"]
+            if iter_size == 2:
+                check(acc is not None and acc["mini_step"] == 1,
+                      f"the epoch-2 state's accumulator: {acc}")
+            else:
+                check(acc is None, "an accumulator without --iter_size")
+            loss = {k: [r["loss"] for r in runs[k]["rows"]]
+                    for k in ("straight", "branch", "resumed")}
+            check([r["epoch"] for r in runs["resumed"]["rows"]]
+                  == list(range(epochs))
+                  and [r["epoch"] for r in runs["branch"]["rows"]]
+                  == list(range(die_at, epochs)), "the resumed epochs")
+            final = {k: runs[k]["states"]["latest"]["model"]
+                     for k in ("straight", "branch", "resumed")}
+            kept = runs["kept"]["latest"]["model"]
+            rel_branch = max(abs(a - b) / abs(a) for a, b in zip(
+                loss["straight"][die_at:], loss["branch"]))
+            l2_branch = update_l2(final["straight"], final["branch"], kept)
+            rel_resumed = [abs(a - b) / abs(a) for a, b in zip(
+                loss["straight"], loss["resumed"])]
+            l2_resumed = update_l2(final["straight"], final["resumed"], init)
+            restore = runs["branch"]["probes"]["restores"][0]
+            probes = runs["straight"]["probes"]
+            size = os.path.getsize(os.path.join(runs["straight"]["dir"],
+                                                "latest.pt"))
+            log("resume", f"--iter_size {iter_size}: losses straight "
+                f"{loss['straight']}, branch {loss['branch']}, died + "
+                f"resumed {loss['resumed']} | {card}")
+            log("resume", f"--iter_size {iter_size}: branch (epoch "
+                f"{die_at} from the straight run's own epoch-{die_at - 1} "
+                f"state): bit-identical {same_tree(final['straight'], final['branch'])}, "
+                f"loss rel. difference {rel_branch:.3e} (bound 1e-4), "
+                f"weights {l2_branch:.3e} of the epoch's update (bound 0.02)")
+            log("resume", f"--iter_size {iter_size}: died + resumed against "
+                f"straight (the card's spread from the second step on): "
+                f"bit-identical {same_tree(final['straight'], final['resumed'])}, "
+                f"loss rel. difference by epoch "
+                f"{[f'{r:.3e}' for r in rel_resumed]}, final weights "
+                f"{l2_resumed:.3e} of the update from the initial weights")
+            log("resume", f"--iter_size {iter_size}: restore of 'latest' "
+                f"{restore[2] * 1e3:.1f} ms (read + copy into the model and "
+                f"optimizer on the card; bit-identical to the file "
+                f"{restore[3]}); the straight run's saves: device-to-host "
+                f"{[round(t * 1e3, 1) for t in probes['to_host_s']]} ms, "
+                f"write {[round(t * 1e3, 1) for t in probes['write_s']]} ms; "
+                f"latest.pt {size / 1e6:.3f} MB | {card}")
+            check(rel_branch <= 1e-4, f"--iter_size {iter_size}: the "
+                  f"branch's loss differs by {rel_branch:.3e}")
+            check(l2_branch < 0.02, f"--iter_size {iter_size}: the branch's "
+                  f"weights {l2_branch:.3e} of the epoch's update")
+
+
+def phase_da_resume(device, card):
+    """--resume through the DA CLI at full width (FC D, 4-phase step,
+    batch 8, 1024x512, fp32, 2 steps an epoch, 3 epochs, through one
+    --data_cache; straight_and_resumed with the death as epoch 2
+    starts): the dying run leaves
+    GTA5_1 / latest and GTA5_1_D1 / latest_D1 states and the marker 1; G,
+    D and both optimizers restore bit for bit and start at epoch 2; 2 + 2
+    CE launches a step; the branch's epoch 2 (from the straight run's own
+    epoch-1 state) within the DA CLI bounds of the straight run's,
+    loss_seg rtol 1e-3 and loss_D1 5e-3; the died + resumed run's losses
+    printed beside them."""
+    steps_per_epoch, epochs, die_at = 2, 3, 2
+    names = ["latest", "latest_D1", "GTA5_1", "GTA5_1_D1"]
+    with tempfile.TemporaryDirectory() as root:
+        gta, cs = os.path.join(root, "gta5"), os.path.join(root, "cityscapes")
+        write_gtav(gta, n=8 * steps_per_epoch)
+        write_cityscapes(cs, "train", n=8 * steps_per_epoch, seed=1)
+        write_cityscapes(cs, "val", n=2)
+        argv = ["--domain_adaptation", "True", "--root", cs,
+                "--root_source", gta, "--root_target", cs,
+                "--depthwise", "False", "--batch_size", "8",
+                "--num_epochs", str(epochs),
+                "--max_steps_per_epoch", str(steps_per_epoch),
+                "--validation_step", "1", "--checkpoint_step", "1",
+                "--data_cache", os.path.join(root, "cache"),
+                "--dtype", "float32", "--cuda", "0", "--tensorboard", "False"]
+        runs = straight_and_resumed(argv, root, die_at, names, "da-resume")
+        caches = os.listdir(os.path.join(root, "cache"))
+        check(len(caches) == 3, f"--data_cache entries {caches}, expected "
+              f"the source's, the target's and the val split's")
+        for kind, steps in (("straight", epochs * steps_per_epoch),
+                            ("branch", (epochs - die_at) * steps_per_epoch),
+                            ("died", die_at * steps_per_epoch),
+                            ("resumed", (epochs - die_at) * steps_per_epoch)):
+            got = runs[kind]["launches"]
+            check(got["fused_ce_fwd"] == 2 * steps
+                  and got["fused_ce_bwd"] == 2 * steps,
+                  f"DA {kind}: CE launches {got}, expected {2 * steps} each")
+        have = runs["died_files"]
+        check({f"{n}.pt" for n in names} <= set(have),
+              f"the dying run's states: {have}")
+        rows = {k: runs[k]["rows"] for k in ("straight", "branch", "resumed")}
+        check([r["epoch"] for r in rows["resumed"]] == list(range(epochs))
+              and [r["epoch"] for r in rows["branch"]] == [die_at],
+              "the resumed epochs")
+        rel = {}
+        for key in ("loss_seg", "loss_adv"):
+            a, b = rows["straight"][die_at][key], rows["branch"][0][key]
+            rel[key] = abs(a - b) / abs(a)
+        restores = runs["branch"]["probes"]["restores"]
+        log("da-resume", f"FC D: the dying run left {have}, marker "
+            f"{die_at - 1}; restores (alias, start epoch, ms, bit-identical "
+            f"to the file) {[(r[0], r[1], round(r[2] * 1e3, 1), r[3]) for r in restores]}")
+        for key in ("loss_seg", "loss_adv"):
+            log("da-resume", f"FC D: {key.replace('loss_adv', 'loss_D1')} "
+                f"straight {[r[key] for r in rows['straight']]}, branch "
+                f"{[r[key] for r in rows['branch']]}, died + resumed "
+                f"{[r[key] for r in rows['resumed']]}")
+        log("da-resume", f"FC D: the branch's epoch {die_at} against the "
+            f"straight run's: loss_seg rel. difference {rel['loss_seg']:.3e} "
+            f"(bound 1e-3), loss_D1 {rel['loss_adv']:.3e} (bound 5e-3); "
+            f"G, D and optimizer states bit-identical "
+            f"{same_tree(runs['straight']['states'], runs['branch']['states'])} "
+            f"(died + resumed: "
+            f"{same_tree(runs['straight']['states'], runs['resumed']['states'])}) | {card}")
+        check(rel["loss_seg"] <= 1e-3 and rel["loss_adv"] <= 5e-3,
+              "the resumed DA epoch's losses")
+
+
+def gxx_finds_image_headers():
+    """Whether ``png.h`` and ``jpeglib.h`` are on g++'s include path (the
+    preprocessor on a two-line source)."""
+    proc = subprocess.run(
+        ["g++", "-E", "-x", "c++", "-"], input="#include <png.h>\n"
+        "#include <jpeglib.h>\n", capture_output=True, text=True)
+    return proc.returncode == 0, proc.stderr.strip().splitlines()[:1]
+
+
+def write_decode_tree(root, n=16, n_jpeg=4, size=(1024, 2048), seed=5):
+    """Cityscapes-sized files: ``n`` pairs of 2048x1024 RGB PNG and label
+    PNG in the Cityscapes layout, and ``n_jpeg`` 2048x1024 JPEGs."""
+    from PIL import Image
+
+    write_cityscapes(root, "train", n=n, size=size, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    jpegs = []
+    for i in range(n_jpeg):
+        path = os.path.join(root, f"j_{i}.jpg")
+        Image.fromarray(rng.integers(0, 255, (*size, 3), dtype=np.uint8)).save(
+            path, quality=90)
+        jpegs.append(path)
+    return jpegs
+
+
+def loader_rate(loader, epochs=3):
+    """Images per second of ``loader`` over ``epochs`` shuffled epochs,
+    its threads' start included."""
+    n = 0
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        for images, _ in loader:
+            n += images.shape[0]
+    return n / (time.perf_counter() - t0)
+
+
+def phase_loader(card, headers, step_ms_per_image):
+    """The host data path on the card's host, at the CLI's 1024x512
+    output: 16 Cityscapes-sized pairs (2048x1024 RGB PNG + label PNG) and
+    4 JPEGs. The native decoder against PIL, bit for bit (faithful
+    resize and not); ms per pair on one thread, native and PIL; the
+    Loader's images/s at batch 8 with 1, 4 and 8 workers, native and PIL
+    (the GIL overlap); the --data_cache build (s) and its warm read (ms
+    per sample); beside the train step's ms per image. Without the image
+    headers only PIL is timed; with them a failed build fails the phase."""
+    from dasemanticsegmentationaml_tpu_torch.data import cache as dcache
+    from dasemanticsegmentationaml_tpu_torch.data import native
+    from dasemanticsegmentationaml_tpu_torch.data import transforms_host as th
+    from dasemanticsegmentationaml_tpu_torch.data.datasets import CityScapes
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import Loader
+
+    log("loader", f"os.cpu_count() {os.cpu_count()}; image headers on g++'s "
+        f"path: {headers}; native decoder: "
+        f"{native.library_path() if native.available() else native.unavailable_reason()}")
+    if headers:
+        check(native.available(), f"the native decoder did not build: "
+              f"{native.unavailable_reason()}")
+
+    @contextlib.contextmanager
+    def pil_only():
+        real = native.decode_resize
+        native.decode_resize = lambda *a, **k: None
+        try:
+            yield
+        finally:
+            native.decode_resize = real
+
+    paths = ["native", "PIL"] if native.available() else ["PIL"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        jpegs = write_decode_tree(root)
+        ds = CityScapes("train", root, 512, 1024)
+        log("loader", f"wrote {len(ds)} pairs + {len(jpegs)} JPEGs at "
+            f"2048x1024 (random pixels: PNG compresses them least) in "
+            f"{time.perf_counter() - t0:.1f} s (set-up)")
+        for faithful in (True, False):
+            ds = CityScapes("train", root, 512, 1024,
+                            faithful_resize=faithful)
+            if native.available():
+                got = [ds[i] for i in range(len(ds))]
+                got += [(th.load_image(p, (512, 1024), faithful),)
+                        for p in jpegs]
+                with pil_only():
+                    want = [ds[i] for i in range(len(ds))]
+                    want += [(th.load_image(p, (512, 1024), faithful),)
+                             for p in jpegs]
+                bad = [i for i, (g, w) in enumerate(zip(got, want, strict=True))
+                       if not all(np.array_equal(a, b) for a, b in zip(g, w))]
+                log("loader", f"native against PIL, faithful_resize "
+                    f"{faithful}, {got[0][0].shape} images: "
+                    f"{len(got) - len(bad)} of {len(got)} samples "
+                    f"bit-identical; differing: {bad}")
+                check(not bad, "the native decoder differs from PIL")
+        timings = {}
+        for path in paths:
+            with pil_only() if path == "PIL" else contextlib.nullcontext():
+                ds[0]  # the first call builds nothing: warm the page cache
+                t0 = time.perf_counter()
+                for i in range(len(ds)):
+                    ds[i]
+                per_pair = (time.perf_counter() - t0) * 1e3 / len(ds)
+                t0 = time.perf_counter()
+                for p in jpegs:
+                    th.load_image(p, (512, 1024), True)
+                per_jpeg = (time.perf_counter() - t0) * 1e3 / len(jpegs)
+                rates = {}
+                for workers in (1, 4, 8):
+                    loader = Loader(ds, 8, shuffle=True, seed=0,
+                                    drop_last=True, num_workers=workers,
+                                    pin_memory=True)
+                    rates[workers] = loader_rate(loader)
+            timings[path] = (per_pair, per_jpeg, rates)
+            log("loader", f"{path}: {per_pair:.3f} ms per pair (image + "
+                f"label, 2048x1024 -> 1024x512) on one thread, "
+                f"{per_jpeg:.3f} ms per JPEG image; Loader, batch 8, "
+                f"pinned: " + ", ".join(
+                    f"{w} workers {r:.2f} images/s" for w, r in rates.items())
+                + f" | {card}")
+        cache_root = os.path.join(root, "cache")
+        t0 = time.perf_counter()
+        cached = dcache.open_or_build(ds, cache_root, num_workers=8)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(len(cached)):
+            cached[i]
+        read_ms = (time.perf_counter() - t0) * 1e3 / len(cached)
+        cache_rate = loader_rate(Loader(cached, 8, shuffle=True, seed=0,
+                                        drop_last=True, num_workers=4,
+                                        pin_memory=True))
+        same = all(np.array_equal(a, b) for i in range(len(ds))
+                   for a, b in zip(cached[i], ds[i]))
+        log("loader", f"--data_cache: build of {len(ds)} samples with 8 "
+            f"workers {build_s:.3f} s; warm read {read_ms:.3f} ms per sample "
+            f"(one thread); Loader over it, batch 8, 4 workers "
+            f"{cache_rate:.2f} images/s; byte-identical to the decode path: "
+            f"{same} | {card}")
+        check(same, "the cache differs from the decode path")
+        best = max(max(t[2].values()) for t in timings.values())
+        log("loader", f"the train step takes {step_ms_per_image:.3f} ms per "
+            f"image (bf16, batch 8; {1e3 / step_ms_per_image:.1f} images/s); "
+            f"the best decode rate above is {best:.2f} images/s, the cache's "
+            f"{cache_rate:.2f}: "
+            + ("the loader sets the pace" if best < 1e3 / step_ms_per_image
+               else "the card sets the pace") + f" | {card}")
 
 
 def time_stdc(device, backbone, h, card, fns=None):
@@ -2414,6 +2962,7 @@ def main(argv=None):
               "False); this script runs only on a card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from dasemanticsegmentationaml_tpu_torch.data import native
     from dasemanticsegmentationaml_tpu_torch.data import native_augment as na
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
@@ -2433,15 +2982,28 @@ def main(argv=None):
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    builds = [lib._library for lib in (ua, fc, fs, cp, tr)] + [na.library]
+    builds = ([lib._library for lib in (ua, fc, fs, cp, tr)]
+              + [na.library, native.library])
     with futures.ThreadPoolExecutor(len(builds)) as pool:
         for job in [pool.submit(build) for build in builds]:
             job.result()
     sources = ("upsample_argmax", "fused_ce", "fused_stdc", "copy_probe",
                "tile_roll")
-    log("build", f"{', '.join(f'{n}.cu' for n in sources)} (nvcc) and "
-        f"native/augment.cpp (g++: {na.library_path()}) built (in "
-        f"parallel) and loaded in {time.perf_counter() - t0:.2f} s (set-up)")
+    log("build", f"{', '.join(f'{n}.cu' for n in sources)} (nvcc), "
+        f"native/augment.cpp (g++: {na.library_path()}) and "
+        f"native/loader.cpp (g++: "
+        f"{native.library_path() if native.available() else 'not built'}) "
+        f"built (in parallel) and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    headers, header_err = gxx_finds_image_headers()
+    log("build", f"png.h and jpeglib.h on g++'s include path: {headers} "
+        f"{header_err}")
+    if headers:
+        check(native.available(), f"native/loader.cpp did not build: "
+              f"{native.unavailable_reason()}")
+    else:
+        log("build", f"the native decoder is not built here, decode runs on "
+            f"PIL: {native.unavailable_reason()}")
     for name in sources:
         for line in BUILD_LOGS.get(name, "").splitlines():
             log("build", f"{name}: {line}")
@@ -2467,9 +3029,12 @@ def main(argv=None):
     phase_augment(device, card)
     phase_da()
     phase_da_parity(device)
+    phase_resume(device, card)
+    phase_da_resume(device, card)
     times = phase_timing(device, model, card)
     stdc_times = time_stdc(device, backbone, h, card)
     time_da_step(device, card)
+    phase_loader(card, headers, times["train"]["kernel"][0] / 8)
 
     argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
     ce_shape, ce_hw = CE_MAIN_CASES[0]

@@ -2,7 +2,8 @@
 
 The JAX package beside this one is the reference every module here is held
 against; each module names its JAX counterpart by file and line. The port
-runs supervised training, ``--domain_adaptation`` and the
+runs supervised training (with ``--iter_size`` accumulation),
+``--domain_adaptation``, ``--resume`` of either, and the
 ``--domain_shift`` evaluation of BiSeNet-STDC813 (``cli.py``), and two
 diagnostics (``tools/``: the copy-bandwidth probe and the 16-bit roll).
 Every kernel the JAX package wrote in Pallas is a hand-written CUDA kernel

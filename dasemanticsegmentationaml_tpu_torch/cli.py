@@ -3,7 +3,8 @@ domain-adaptation and ``--domain_shift`` modes.
 
 Counterpart of ``dasemanticsegmentationaml_tpu/cli.py`` (main :281;
 datasets :312-403; the eval-only branch :472-476 and :591-599; the DA
-branch :601-711; the supervised branch :713-763). By default it trains
+branch :601-711; the supervised branch :713-763; ``maybe_resume``
+:128-150). By default it trains
 BiSeNet-STDC813 on the Cityscapes train split (or the GTA5 75% split with
 ``--dataset GTAV``), validating and checkpointing as the reference's
 ``train()`` does (train.py:63-120), and ends with a full validation. With
@@ -23,10 +24,22 @@ native C++ ops). ``--augment_labels`` warps the labels with the image.
 rotation is a TPU workaround the port does not need. ``--profile_dir``
 writes a ``torch.profiler`` trace of the first training steps.
 
+Every checkpoint also writes the full train state under
+``<save_model_path>/state/`` (``utils/checkpoint.py``), and ``--resume
+<save_model_path>/state`` continues a run from it: the model, the
+optimizer and the ``--iter_size`` accumulation (DA: G and D, each with its
+optimizer), from the epoch after the last checkpoint. As in JAX, the best
+mIoU and the TensorBoard step restart from 0. ``--iter_size k``
+accumulates k mini-steps per optimizer step (supervised;
+``train/optim.py::GradientAccumulator``, optax ``MultiSteps``).
+``--data_cache DIR`` decodes each dataset once into memmaps under DIR
+(``data/cache.py``). Images decode through the native library
+(``data/native.py``); when it cannot be built the CLI prints why and
+decodes with PIL, to the same bytes.
+
 ``--cuda`` picks the device: ``cpu``, or the index ``n`` of ``cuda:n``;
 without CUDA the latter stops with ``SystemExit``, it never drops to the
-CPU. ``--iter_size > 1`` (supervised), ``--resume``, int8, export, the
-data cache and multi-device or multi-process runs stop with
+CPU. int8, export and multi-device or multi-process runs stop with
 ``SystemExit("...: not ported yet: see ROADMAP.md")``; ``--iter_size > 1``
 with ``--domain_adaptation`` stops with the JAX package's reason.
 
@@ -49,6 +62,7 @@ import os
 
 import torch
 
+from .data import native
 from .data.augment import batch_generator
 from .data.datasets import CityScapes, GtaV, Subset, train_val_split
 from .data.host_augment import HostAugment
@@ -57,8 +71,9 @@ from .models.bisenet import build_bisenet, trainable_parameters
 from .models.discriminator import build_discriminator
 from .train.adversarial import make_da_step, train_da
 from .train.evaluate import evaluate
-from .train.optim import make_optimizer
+from .train.optim import GradientAccumulator, make_optimizer
 from .train.supervised import make_train_step, train
+from .utils import state_io
 from .utils.checkpoint import make_checkpoint_fn
 from .utils.config import parse_args
 from .utils.logging_util import JsonlLogger, Profiler, make_writer
@@ -100,11 +115,8 @@ def check_ported(args) -> None:
     if args.domain_adaptation and args.iter_size > 1:
         raise SystemExit(DA_ITER_SIZE)
     unported = {
-        "--iter_size > 1": args.iter_size > 1,
         "--quantize_int8": args.quantize_int8,
         "--export_model": args.export_model,
-        "--data_cache": args.data_cache,
-        "--resume": args.resume,
         "multi-process runs": (args.coordinator_address is not None
                                or (args.num_processes or 1) > 1),
         "multi-device runs": ((args.num_devices or 1) > 1
@@ -113,6 +125,53 @@ def check_ported(args) -> None:
     for what, requested in unported.items():
         if requested:
             raise SystemExit(f"{what}: {NOT_PORTED}")
+
+
+def maybe_resume(args, module, optimizer, accumulator=None,
+                 alias: str = "latest") -> int:
+    """``--resume <dir>``: restore the state ``alias`` into ``module``,
+    ``optimizer`` and ``accumulator``; returns the first epoch to run,
+    the one after the EPOCH marker's, or ``--epoch_start_i`` without a
+    marker (JAX cli.py:128-150). The best mIoU and the TensorBoard step
+    counter are not part of the state: they restart from 0, as in JAX."""
+    if not args.resume:
+        return args.epoch_start_i
+    if not os.path.exists(state_io.state_path(args.resume, alias)):
+        have = (sorted(f[:-3] for f in os.listdir(args.resume)
+                       if f.endswith(".pt"))
+                if os.path.isdir(args.resume) else [])
+        raise SystemExit(
+            f"--resume: no '{alias}' state under {args.resume} "
+            f"(found: {have or 'nothing'}); the run died before its "
+            f"first checkpoint epoch")
+    state = state_io.restore_train_state(args.resume, alias)
+    if (state["accumulator"] is None) != (accumulator is None):
+        saved = (1 if state["accumulator"] is None
+                 else state["accumulator"]["every_k"])
+        raise SystemExit(
+            f"--resume: {args.resume}/{alias} was saved with --iter_size "
+            f"{saved}; resume it with the same --iter_size")
+    module.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    if accumulator is not None:
+        accumulator.load_state_dict(state["accumulator"])
+    epoch = state_io.latest_epoch_marker(args.resume)
+    start = (epoch + 1) if epoch is not None else args.epoch_start_i
+    print(f"resumed from {args.resume}/{alias} at epoch {start}")
+    return start
+
+
+def native_decoder_note():
+    """One line when images decode with PIL because the native library
+    did not build or load here, naming why; None when it is in use."""
+    reason = native.unavailable_reason()
+    if reason is None:
+        return None
+    lines = [line.strip() for line in reason.splitlines() if line.strip()]
+    errors = [line for line in lines if "error" in line.lower()]
+    why = " | ".join(errors or lines[-1:])
+    return (f"native decoder unavailable, decoding with PIL (same bytes, "
+            f"slower): {why}")
 
 
 def resolve_host_augment(aug_type, host_augment, backend,
@@ -223,6 +282,18 @@ def main(argv=None):
         host_cores=min(os.cpu_count() or 1, max(1, args.num_workers)))
     if host_aug_note:
         print(host_aug_note)
+    decoder_note = native_decoder_note()
+    if decoder_note:
+        print(decoder_note)
+
+    def maybe_cache(ds):
+        """--data_cache: a scan dataset decoded once into memmaps, beneath
+        the GTA5 split and HostAugment (JAX cli.py:315-326, 356-372)."""
+        if ds is None or not args.data_cache:
+            return ds
+        from .data.cache import open_or_build
+        return open_or_build(ds, args.data_cache,
+                             num_workers=args.num_workers)
 
     def maybe_host_augment(ds):
         """--host_augment: the menu runs on the host, in the train
@@ -234,8 +305,9 @@ def main(argv=None):
 
     # ---- datasets (reference train.py:444-491) ---------------------------
     if args.dataset == "GTAV":
-        dataset = GtaV(args.root, args.aug_type, args.crop_height,
-                       args.crop_width, faithful_resize=args.faithful_resize)
+        dataset = maybe_cache(GtaV(
+            args.root, args.aug_type, args.crop_height, args.crop_width,
+            faithful_resize=args.faithful_resize))
         train_idx, val_idx = train_val_split(len(dataset))
         # wrap the Subset, so that HostAugment's idx is the split's, as
         # in JAX (cli.py:360)
@@ -246,12 +318,12 @@ def main(argv=None):
     else:
         # neither eval-only mode nor DA uses a train split from --root
         train_ds = None if args.domain_shift or args.domain_adaptation \
-            else CityScapes(
-            "train", args.root, args.crop_height, args.crop_width,
-            faithful_resize=args.faithful_resize)
-        val_ds = CityScapes("val", args.root, args.crop_height,
-                            args.crop_width,
-                            faithful_resize=args.faithful_resize)
+            else maybe_cache(CityScapes(
+                "train", args.root, args.crop_height, args.crop_width,
+                faithful_resize=args.faithful_resize))
+        val_ds = maybe_cache(CityScapes(
+            "val", args.root, args.crop_height, args.crop_width,
+            faithful_resize=args.faithful_resize))
         remap = False
         aug_train = None
     loader_val = Loader(val_ds, args.eval_batch_size,
@@ -294,11 +366,14 @@ def main(argv=None):
         profiler = Profiler(args.profile_dir) if args.profile_dir else None
         try:
             if args.domain_adaptation:
-                source_ds = maybe_host_augment(GtaV(
+                source_ds = maybe_host_augment(maybe_cache(GtaV(
                     args.root_source, args.aug_type, args.crop_height,
+                    args.crop_width, faithful_resize=args.faithful_resize)))
+                target_ds = maybe_cache(CityScapes(
+                    "train", args.root_target, args.crop_height,
                     args.crop_width, faithful_resize=args.faithful_resize))
                 max_miou = _train_da(
-                    args, model, source_ds,
+                    args, model, source_ds, target_ds,
                     make_prepare(None if host_aug else args.aug_type, True),
                     make_prepare(None, False), evaluate_fn, amp_dtype,
                     device, profiler)
@@ -327,8 +402,12 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
     optimizer = make_optimizer(
         args.optimizer, trainable_parameters(model, args.use_conv_last),
         args.learning_rate, momentum=0.9, weight_decay=wd)
-    step = make_train_step(model, optimizer, ohem=args.ohem,
-                           amp_dtype=amp_dtype)
+    # --iter_size: optax.MultiSteps in JAX (cli.py:719-722)
+    accumulator = (GradientAccumulator(optimizer, args.iter_size)
+                   if args.iter_size > 1 else None)
+    args.epoch_start_i = maybe_resume(args, model, optimizer, accumulator)
+    step = make_train_step(model, optimizer, accumulator=accumulator,
+                           ohem=args.ohem, amp_dtype=amp_dtype)
     writer = make_writer(args.tensorboard)
     logger = JsonlLogger(args.jsonl_log)
     try:
@@ -336,15 +415,16 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
                      evaluate_fn=evaluate_fn, train_step=step,
                      writer=writer, logger=logger,
                      checkpoint_fn=make_checkpoint_fn(args.save_model_path),
-                     profiler=profiler)
+                     profiler=profiler, accumulator=accumulator)
     finally:
         logger.close()
         if writer is not None:
             writer.close()
 
 
-def _train_da(args, model, source_ds, prepare_source, prepare_target,
-              evaluate_fn, amp_dtype, device, profiler) -> float:
+def _train_da(args, model, source_ds, target_ds, prepare_source,
+              prepare_target, evaluate_fn, amp_dtype, device,
+              profiler) -> float:
     """The DA branch (JAX cli.py:601-711; reference train.py:134-299):
     GTA5 source batches (raw ids remapped, augmented by ``--aug_type``)
     shuffled with ``seed``, Cityscapes target batches shuffled with
@@ -352,9 +432,6 @@ def _train_da(args, model, source_ds, prepare_source, prepare_target,
     with ``--momentum`` and ``--weight_decay`` (train.py:170-171),
     Adam(0.9, 0.99) for D (train.py:172)."""
     pin = device.type == "cuda"
-    target_ds = CityScapes("train", args.root_target, args.crop_height,
-                           args.crop_width,
-                           faithful_resize=args.faithful_resize)
     loader_source = Loader(source_ds, args.batch_size, shuffle=True,
                            seed=args.seed, drop_last=True,
                            num_workers=args.num_workers, pin_memory=pin)
@@ -377,6 +454,11 @@ def _train_da(args, model, source_ds, prepare_source, prepare_target,
                            weight_decay=args.weight_decay)
     d_opt = make_optimizer("adam", d_model.parameters(), args.learning_rate_D,
                            betas=(0.9, 0.99))
+    # G from 'latest', D with its Adam state from 'latest_D1' (JAX
+    # cli.py:661-663); the schedules fast-forward to the start epoch
+    args.epoch_start_i = maybe_resume(args, model, g_opt)
+    if args.resume:
+        maybe_resume(args, d_model, d_opt, alias="latest_D1")
     step = make_da_step(model, d_model, g_opt, d_opt,
                         lambda_adv=args.lambda_adv_target1,
                         d_head=args.d_head, step_mode=args.da_step_mode,

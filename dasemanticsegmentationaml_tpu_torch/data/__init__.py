@@ -1,1 +1,2 @@
-"""Label tables, dataset scanners, host decode and batch preparation."""
+"""Label tables, dataset scanners, host decode (native or PIL), the
+decoded-sample cache, augmentation and batch preparation."""

@@ -47,6 +47,12 @@ class _PairDataset:
         return (load_image(image_path, hw, self.faithful_resize),
                 load_label(label_path, hw, self.faithful_resize))
 
+    @property
+    def needs_remap(self) -> bool:
+        """Whether the labels hold raw ids to map to trainIds (a field of
+        the ``--data_cache`` fingerprint, JAX datasets.py:55-57)."""
+        return False
+
 
 class CityScapes(_PairDataset):
     """reference cityscapes.py:12-74; labels are trainId-encoded already."""
@@ -112,6 +118,10 @@ class GtaV(_PairDataset):
         if aug_type not in (None, "CS-HF", "H-RP", "B-GS-R"):
             raise KeyError(aug_type)
         self.aug_type = aug_type
+
+    @property
+    def needs_remap(self) -> bool:
+        return True
 
 
 class Subset:

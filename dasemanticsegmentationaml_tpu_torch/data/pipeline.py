@@ -6,8 +6,9 @@ normalised where the model runs. The train loader shuffles with the JAX
 package's order, ``np.random.default_rng((seed, epoch)).permutation(n)``
 (JAX pipeline.py:179-184), so both see the same batches. Training
 batches of GTA5 are augmented on the device (``augment.py``), or on the
-host by a ``host_augment.HostAugment`` dataset. The native C++ decoder is
-still to be ported (ROADMAP.md).
+host by a ``host_augment.HostAugment`` dataset. The decode threads run
+``data/transforms_host.py`` (the native decoder, or PIL), or read a
+``--data_cache`` memmap (``data/cache.py``).
 """
 
 from __future__ import annotations

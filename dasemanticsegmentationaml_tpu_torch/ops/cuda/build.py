@@ -7,7 +7,8 @@ package, named by a hash of the source, the local headers it includes and
 the flags, so an edited source or header is rebuilt and an unchanged one
 is loaded as it is. Nothing is compiled when a module is imported: the
 first launch builds. ``source_digest`` and ``build_library`` also build
-the host library of ``native/`` with g++ (``data/native_augment.py``).
+the host libraries of ``native/`` with g++ (``data/native_augment.py``,
+``data/native.py``).
 """
 
 from __future__ import annotations
@@ -77,18 +78,19 @@ def source_digest(src: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(command: Sequence[str], src: str,
-                  so_path: str) -> Optional[str]:
+def build_library(command: Sequence[str], src: str, so_path: str,
+                  libs: Sequence[str] = ()) -> Optional[str]:
     """Compile ``src`` into ``so_path`` with ``command`` (the compiler and
-    its flags) unless that file exists; return the compiler's output, or
-    None when nothing was built. Raises with the compiler's message on a
-    failed build. The library is written under a temporary name and
-    renamed, so a process never loads a half-written file."""
+    its flags), linking ``libs`` after the source, unless that file
+    exists; return the compiler's output, or None when nothing was built.
+    Raises with the compiler's message on a failed build. The library is
+    written under a temporary name and renamed, so a process never loads
+    a half-written file."""
     if os.path.exists(so_path):
         return None
     os.makedirs(os.path.dirname(so_path), exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [*command, "-o", tmp, src]
+    cmd = [*command, "-o", tmp, src, *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -1,1 +1,1 @@
-"""Evaluation loop (training is still to be ported, ROADMAP.md)."""
+"""Trainers (supervised, adversarial), optimizers and the eval loop."""

@@ -40,7 +40,10 @@ The epoch loop reproduces the reference's compounding poly LR for G and D
 'nni_faithful'`` (JAX :339-344), one host readback per epoch, the
 ``iter = ..., loss_seg = ... loss_D1 = ...`` line, ``GTA5_<step>.pth`` /
 ``GTA5_<step>_D1.pth`` with ``module.`` prefixes (train.py:280-283), and
-``best.pth`` + ``best_D1.pth`` (JAX :448-450).
+``best.pth`` + ``best_D1.pth`` (JAX :448-450). Each checkpoint carries its
+optimizer and the epoch, D's under the alias ``latest_D1`` (JAX
+:424-450), so ``--resume`` restores G, D and both optimizers together; a
+resumed run's best mIoU and step counter start again from 0, as in JAX.
 """
 
 from __future__ import annotations
@@ -192,7 +195,8 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
     epoch and step key the source batch's augmentation); profiler: its
     ``step()`` is called after each step; evaluate_fn(g) ->
     (precision, miou), called with G in eval mode and G restored to train
-    mode after; checkpoint_fn(model, name, dataparallel_prefix=False).
+    mode after; checkpoint_fn(model, name, dataparallel_prefix=False,
+    optimizer=, model=, epoch=) (``utils/checkpoint.py``).
     lr_mode: 'reference' (each optimizer compounds its own poly schedule)
     or 'nni_faithful' (G compounds ``learning_rate_D``'s schedule, D keeps
     ``learning_rate_D``: the NNI trial's actual dataflow, JAX :326-333)."""
@@ -266,9 +270,11 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
                 and checkpoint_fn is not None:
             # train.py:280-283: module.-prefixed, named by the step flag
             checkpoint_fn(g, f"GTA5_{args.checkpoint_step}",
-                          dataparallel_prefix=True)
+                          dataparallel_prefix=True, optimizer=g_opt,
+                          epoch=epoch)
             checkpoint_fn(d, f"GTA5_{args.checkpoint_step}_D1",
-                          dataparallel_prefix=True)
+                          dataparallel_prefix=True, optimizer=d_opt,
+                          model="discriminator", epoch=epoch)
 
         if epoch % args.validation_step == 0 and epoch != 0:
             g.eval()
@@ -279,8 +285,11 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
             if miou > max_miou:
                 max_miou = miou
                 if checkpoint_fn is not None:
-                    checkpoint_fn(g, "best")
-                    checkpoint_fn(d, "best_D1")
+                    # both nets: a best save moves G's 'latest' and the
+                    # marker, so D must move with it (JAX :440-450)
+                    checkpoint_fn(g, "best", optimizer=g_opt, epoch=epoch)
+                    checkpoint_fn(d, "best_D1", optimizer=d_opt,
+                                  model="discriminator", epoch=epoch)
             if writer is not None:
                 writer.add_scalar("epoch/precision_val", precision, epoch)
                 writer.add_scalar("epoch/miou val", miou, epoch)

@@ -8,13 +8,21 @@ bf16 has fp32's exponent range, so no loss scaling is needed. BN runs in
 train mode (stock ``nn.BatchNorm2d``: biased batch variance to normalise,
 unbiased into the running variance, JAX ops/norm.py:72-97).
 
+With ``--iter_size k > 1`` the optimizer steps through a
+``GradientAccumulator`` (``train/optim.py``, optax ``MultiSteps``): each
+mini-step is one call of the step, and the parameters move at every k-th.
+
 The epoch loop keeps the reference's bookkeeping: the standard poly LR per
 epoch (train.py:71), ``latest`` every ``checkpoint_step`` epochs,
 validation and ``best`` every ``validation_step`` (train.py:106-120), and
 its TensorBoard names (loss_step / epoch/loss_epoch_train /
-epoch/precision_val / 'epoch/miou val'). The step returns its loss as a
-device tensor; the losses are read back once per epoch (JAX
-supervised.py:169-187), so no step waits for the card.
+epoch/precision_val / 'epoch/miou val'). Each checkpoint carries the
+epoch, the optimizer and the accumulator (JAX supervised.py:189-199), for
+``--resume``. A resumed run starts at ``args.epoch_start_i``; its best
+mIoU and TensorBoard step counter start again from 0, as in JAX. The step
+returns its loss (one per mini-step) as a device tensor; the losses are
+read back once per epoch (JAX supervised.py:169-187), so no step waits
+for the card.
 """
 
 from __future__ import annotations
@@ -68,12 +76,14 @@ def make_supervised_loss(model, *, ohem: Optional[dict] = None,
     return loss_fn
 
 
-def make_train_step(model, optimizer, *, ohem: Optional[dict] = None,
-                    ignore_index: int = 255,
+def make_train_step(model, optimizer, *, accumulator=None,
+                    ohem: Optional[dict] = None, ignore_index: int = 255,
                     amp_dtype: Optional[torch.dtype] = None,
                     ce: Callable = cross_entropy_upsampled):
     """step(images, labels) -> the loss as a detached device scalar (JAX
-    supervised.py:86-113). The model must be in train mode."""
+    supervised.py:86-113). The model must be in train mode.
+    ``accumulator``: a ``GradientAccumulator`` over ``optimizer``; the step
+    is then one mini-step (JAX cli.py:719-722)."""
     loss_fn = make_supervised_loss(model, ohem=ohem,
                                    ignore_index=ignore_index,
                                    amp_dtype=amp_dtype, ce=ce)
@@ -82,7 +92,10 @@ def make_train_step(model, optimizer, *, ohem: Optional[dict] = None,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(images, labels)
         loss.backward()
-        optimizer.step()
+        if accumulator is None:
+            optimizer.step()
+        else:
+            accumulator.step()
         return loss.detach()
 
     return step
@@ -90,7 +103,8 @@ def make_train_step(model, optimizer, *, ohem: Optional[dict] = None,
 
 def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
           train_step: Callable, writer=None, logger=None,
-          checkpoint_fn: Optional[Callable] = None, profiler=None):
+          checkpoint_fn: Optional[Callable] = None, profiler=None,
+          accumulator=None):
     """Epoch loop with the reference's bookkeeping (JAX
     supervised.py:116-204; reference train.py:63-120).
 
@@ -99,8 +113,10 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
     is called after each step; evaluate_fn(model) ->
     (precision, miou), called with the model in eval mode, which is
     restored to train mode afterwards (otherwise BN would either stay
-    frozen or learn the val set); checkpoint_fn(model, name) writes
-    'latest' / 'best'. Returns the best validation mIoU."""
+    frozen or learn the val set); checkpoint_fn(model, name, optimizer=,
+    accumulator=, epoch=) writes 'latest' / 'best' (``utils/checkpoint.
+    py``); ``accumulator``: the ``GradientAccumulator`` the step uses, saved
+    with the state. Returns the best validation mIoU."""
     sched = PolyLR(args.learning_rate, args.num_epochs, mode="standard")
     max_miou = 0.0
     step_count = 0
@@ -146,7 +162,8 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
 
         if epoch % args.checkpoint_step == 0 and epoch != 0 \
                 and checkpoint_fn is not None:
-            checkpoint_fn(model, "latest")
+            checkpoint_fn(model, "latest", optimizer=optimizer,
+                          accumulator=accumulator, epoch=epoch)
 
         if epoch % args.validation_step == 0 and epoch != 0:
             model.eval()
@@ -157,7 +174,8 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
             if miou > max_miou:
                 max_miou = miou
                 if checkpoint_fn is not None:
-                    checkpoint_fn(model, "best")
+                    checkpoint_fn(model, "best", optimizer=optimizer,
+                                  accumulator=accumulator, epoch=epoch)
             if writer is not None:
                 writer.add_scalar("epoch/precision_val", precision, epoch)
                 writer.add_scalar("epoch/miou val", miou, epoch)

@@ -1,1 +1,1 @@
-"""Flag parsing and reference-named weight loading."""
+"""Flag parsing, weights, checkpoints and the train state, logging."""

@@ -80,7 +80,8 @@ _FLAGS = (
     ("--optimizer", str, "sgd", None, "sgd | adam | rmsprop"),
     ("--loss", str, "crossentropy", None, "crossentropy | ohem"),
     ("--iter_size", int, 1, None,
-     "more than 1: " + _TODO + "; stops with --domain_adaptation"),
+     "accumulate gradients over n mini-steps (supervised; stops with "
+     "--domain_adaptation)"),
     ("--domain_shift", str2bool, False, None,
      "evaluate --pretrain_path on the val set"),
     ("--domain_adaptation", str2bool, False, None,
@@ -133,12 +134,15 @@ _FLAGS = (
     ("--export_batches", str, None, None, _TODO),
     ("--export_spatial", str2bool, False, None, _TODO),
     ("--export_devices", int, 1, None, _TODO),
-    ("--resume", str, None, None, _TODO),
+    ("--resume", str, None, None,
+     "continue from <save_model_path>/state (model, optimizer, "
+     "accumulation, epoch)"),
     ("--coordinator_address", str, None, None, _TODO),
     ("--num_processes", int, None, None, _TODO),
     ("--process_id", int, None, None, _TODO),
     ("--eval_process_shard", str2bool, True, None, _TODO),
-    ("--data_cache", str, None, None, _TODO),
+    ("--data_cache", str, None, None,
+     "decode each dataset once into memmaps under this directory"),
     ("--jsonl_log", str, None, None, "per-epoch JSONL log file"),
     ("--tensorboard", str2bool, True, None,
      "TensorBoard scalars under runs/ (training)"),

@@ -607,3 +607,86 @@ def test_tile_roll_rejects_what_it_does_not_take(cuda_device):
                                  device=cuda_device), 1)
     with pytest.raises(ValueError):
         tr.tile_roll(torch.zeros(2, 8, 8, device=cuda_device), 1)
+
+
+def _write_cityscapes(root, mode, n, size=(64, 128), seed=0):
+    """tests/test_torch_eval.py::_mk_cityscapes's layout (that module
+    imports JAX)."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for top in ("images", "gtFine"):
+        os.makedirs(os.path.join(root, top, mode, "city"), exist_ok=True)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (*size, 3), dtype=np.uint8)
+                        ).save(os.path.join(root, "images", mode, "city",
+                                            f"c_{i:03d}.png"))
+        Image.fromarray(rng.integers(0, 19, size, dtype=np.uint8), mode="L"
+                        ).save(os.path.join(root, "gtFine", mode, "city",
+                                            f"c_{i:03d}_labelTrainIds.png"))
+
+
+@pytest.mark.cuda
+def test_resumed_run_on_card_matches_straight_run(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """Supervised, fp32 (TF32 off), 64x128, batch 2, 4 epochs of 2 steps
+    with --iter_size 2. The straight run keeps a copy of its own epoch-2
+    state; --resume from it runs epoch 3 again from the very same state,
+    restored bit for bit. The card's backward does not sum in a fixed
+    order, so the epoch is held to the card-step bounds (PERF.md §2):
+    its loss within rtol 1e-4 of the straight run's, its final weights
+    within 0.02 of the epoch's update in global l2."""
+    import json
+    import os
+    import shutil
+
+    from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.utils import state_io
+
+    root = str(tmp_path / "cs")
+    _write_cityscapes(root, "train", 4)
+    _write_cityscapes(root, "val", 2, seed=1)
+    argv = ["--root", root, "--crop_height", "64", "--crop_width", "128",
+            "--batch_size", "2", "--eval_batch_size", "2",
+            "--num_epochs", "4", "--max_steps_per_epoch", "2",
+            "--iter_size", "2", "--validation_step", "1",
+            "--checkpoint_step", "1", "--num_workers", "1",
+            "--dtype", "float32", "--tensorboard", "False", "--cuda", "0"]
+    kept = str(tmp_path / "kept")
+    write_marker = state_io.write_epoch_marker
+
+    def keeping(directory, epoch):
+        write_marker(directory, epoch)
+        if epoch == 2:
+            shutil.copytree(directory, kept, dirs_exist_ok=True)
+
+    runs = {}
+    for kind in ("straight", "resumed"):
+        save = str(tmp_path / kind)
+        log = str(tmp_path / f"{kind}.jsonl")
+        run = argv + ["--save_model_path", save, "--jsonl_log", log]
+        if kind == "straight":
+            monkeypatch.setattr(state_io, "write_epoch_marker", keeping)
+        else:
+            run += ["--resume", kept]
+        cli.main(run)
+        monkeypatch.undo()
+        with open(log) as f:
+            rows = [json.loads(line) for line in f]
+        runs[kind] = (rows, state_io.restore_train_state(
+            os.path.join(save, "state"), "latest")["model"])
+    (rows_a, final_a), (rows_b, final_b) = runs["straight"], runs["resumed"]
+    assert [r["epoch"] for r in rows_b] == [3]
+    np.testing.assert_allclose(rows_b[0]["loss"], rows_a[3]["loss"],
+                               rtol=1e-4)
+    start = state_io.restore_train_state(kept, "latest")["model"]
+    diff = upd = 0.0
+    for key, a in final_a.items():
+        if key.endswith(("running_mean", "running_var",
+                         "num_batches_tracked")):
+            continue
+        diff += float((final_b[key].double() - a.double()).pow(2).sum())
+        upd += float((a.double() - start[key].double()).pow(2).sum())
+    assert upd > 0 and (diff / upd) ** 0.5 < 0.02

@@ -230,19 +230,16 @@ def test_domain_shift_cli_matches_jax(tmp_path, dataset):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--iter_size", "2"],
     ["--spatial_devices", "2"],
-    ["--resume", "runs/ckpt"],
     ["--coordinator_address", "localhost:1234"],
     ["--domain_adaptation", "True", "--iter_size", "2"],
     ["--quantize_int8", "True"],
     ["--export_model", "model.bin"],
-    ["--data_cache", "cache"],
     ["--num_processes", "2"],
     ["--num_devices", "2"],
     # the augmentation and profile flags are ported; the stops stay
     ["--aug_type", "H-RP", "--host_augment", "True", "--profile_dir",
-     "runs/trace", "--resume", "runs/ckpt"],
+     "runs/trace", "--quantize_int8", "True"],
 ])
 def test_cli_stops_on_unported_paths(flags):
     argv = ["--domain_shift", "True", "--cuda", "cpu"] + flags

@@ -39,7 +39,8 @@ def test_port_imports_no_jax():
         "ops.norm", "models.discriminator", "tools", "tools.probe_copy",
         "tools.roll_repro", "train.adversarial", "train.optim",
         "train.supervised", "utils.checkpoint", "utils.logging_util",
-        "utils.tb_writer")
+        "utils.tb_writer", "utils.state_io", "utils.label_tools",
+        "data.native", "data.cache", "data.transforms_host")
     } <= set(modules)
     code = (
         "import importlib, sys\n"
