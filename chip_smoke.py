@@ -13,15 +13,18 @@ earlier upsample+argmax on the kernel phase's cases (its disagreements
 logged), then each kernel and the eval forward, train step or
 features[2:8] chain with it timed in turns A B B A, and last the
 unaugmented train and DA steps, each with its own package's batch
-preparation, in turns A B B A; nothing else runs (``compare_baseline``).
+preparation, in turns A B B A, and last the earlier version's eager eval
+loop against this checkout's eager and windowed ones (the eval-window
+phase with the baseline's pass first and last); nothing else runs
+(``compare_baseline``).
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
                   fallback); prints its name and power limit from nvidia-smi.
 2. build       -- compiles csrc/upsample_argmax.cu, csrc/fused_ce.cu,
-                  csrc/fused_stdc.cu, csrc/copy_probe.cu and csrc/tile_roll.cu
-                  with nvcc for sm_90a, one nvcc each, and native/augment.cpp
-                  (the host augmentation) and native/loader.cpp (the
-                  decoder) with g++, all at once; prints ptxas, and whether
+                  csrc/fused_stdc.cu, csrc/copy_probe.cu, csrc/tile_roll.cu
+                  and csrc/int8_conv.cu with nvcc for sm_90a, one nvcc each,
+                  and native/augment.cpp (the host augmentation) and
+                  native/loader.cpp (the decoder) with g++, all at once; prints ptxas, and whether
                   png.h and jpeglib.h are on g++'s include path (with them
                   the decoder must build; without, decode runs on PIL).
 3. kernel      -- the fused upsample+argmax kernel against its plain PyTorch
@@ -42,6 +45,14 @@ preparation, in turns A B B A; nothing else runs (``compare_baseline``).
                   against their plain PyTorch version on folded weights, at
                   the six STDC813 bottleneck shapes at batch 8, 1024x512 and
                   at edge shapes, in fp32 and bf16; two runs bit-identical.
+5b. int8-kernel - the int8 conv kernel (s8 x s8 -> s32 implicit GEMM with
+                  the fp32 epilogue) against its plain version (a float64
+                  convolution of the int8 values), bit for bit, at
+                  BiSeNet's block shapes at batch 8 and at edge shapes, in
+                  every pair of fp32 / bf16 input and output; then at
+                  conv_out.conv's (8, 256, 64, 128) the kernel, the plain
+                  version, the library yardstick (im2col + torch._int_mm +
+                  the epilogue) and cuDNN's bf16 conv, in turns.
 6. copy-probe  -- every variant of the probe's sweep of the three copy
                   kernels (copy_block, copy_direct, and the TMA ring
                   copy_bounce at 2 and 8 slots over every split between
@@ -74,10 +85,19 @@ preparation, in turns A B B A; nothing else runs (``compare_baseline``).
                   Cityscapes val tree at 1024x512 on cuda:0 in bf16 (the
                   kernel's launch count is reset before and read after), then
                   fp32 on the card against fp32 on the CPU.
+10b. int8-slice - the slice's main path: the --domain_shift CLI with
+                  --quantize_int8 True (filter all) and --eval_scan_window
+                  2, bf16, on a 4-image 1024x512 tree (the counts reset
+                  before and read after: both kernels, eager and by graph
+                  replay); every --quantize_filter with both
+                  --quantize_clip values (int8 launches = blocks x
+                  batches); head_ch in fp32 on the card against the CPU.
 11. train      -- the port's supervised CLI on a synthetic 16 + 4 image tree
-                  at 1024x512, batch 8, bf16, 2 epochs of 2 steps (the
-                  kernels' counts reset before and read after); its best.pth
-                  through the --domain_shift CLI reproduces its mIoU.
+                  at 1024x512, batch 8, bf16, 2 epochs of 2 steps, its
+                  validations in --eval_scan_window 2 (the kernels' counts
+                  reset before and read after; the final evaluation
+                  replays the validation's capture); its best.pth through
+                  the (eager) --domain_shift CLI reproduces its mIoU.
 12. train-parity- one fp32 train step at 2x3x1024x512 on the card against
                   the same step on the CPU (TF32 off) and in fp64 on the CPU.
 13. augment    -- the device augmentation (CS-HF, H-RP, B-GS-R) on the card
@@ -138,6 +158,11 @@ preparation, in turns A B B A; nothing else runs (``compare_baseline``).
                   and
                   torch.profiler passes: device busy share, top kernels and
                   the CE kernels' share of the train and DA steps.
+18b. eval-window- eval images/s over 16 prepared bf16 batches of 8 at
+                  512x1024: eager against --eval_scan_window 8 and 4 (turns
+                  A B C C B A), and the int8 models of head_ch and all
+                  (their calibration timed) eager against window 8; counts
+                  equal to eager's; device busy share of each.
 19. loader     -- the card's host: os.cpu_count(); 16 Cityscapes-sized
                   pairs (2048x1024 PNG image + label) and 4 JPEGs decoded to
                   1024x512 by the native decoder and by PIL, bit for bit;
@@ -187,6 +212,9 @@ COPY_REPLACES = {"copy_block": "tools/probe_pallas_dma.py:34",
                  "copy_bounce": "tools/probe_dma_manual.py:132"}
 ROLL_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/tile_roll.cu"
 ROLL_REPLACES = "tools/mosaic_roll_repro.py:30"
+INT8_SOURCE = "dasemanticsegmentationaml_tpu_torch/csrc/int8_conv.cu"
+#: no Pallas original: the XLA ops of the JAX package's int8 block body
+INT8_REPLACES = "dasemanticsegmentationaml_tpu/ops/quantize.py:108"
 #: the ring depth whose time stands for copy_bounce in the kernels' record
 BOUNCE_SLOTS = 8
 #: the CE kernels' names in a profile: the forward's band and finishing
@@ -208,7 +236,8 @@ BASELINE = "baseline_torch_port"
 #: an H100 SXM (NVIDIA's data sheet, dense): operations/s by type, fp32
 #: outside the tensor cores, bf16 on them (its device-memory rate is
 #: tools/probe_copy.py::PEAK_BYTES_PER_S)
-PEAK_OPS_PER_S = {"fp32": 67e12, "bf16_tensor": 989e12}
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16_tensor": 989e12,
+                  "int8_tensor": 1979e12}
 #: the six STDC813 bottlenecks, features[2:8], at batch 8 and 1024x512
 #: (models/stdcnet.py:174-190): stride, input (C, H, W), (h1, h2, h3, h4)
 STDC813_BOTTLENECKS = (
@@ -415,9 +444,15 @@ def kernel_cases(device, ua):
         for dtype in (torch.float32, torch.bfloat16):
             for kind in KINDS:
                 x = logits_on(device, shape, n, kind, dtype)
-                got = ua.upsample_argmax(x, out_hw)
+                try:
+                    got = ua.upsample_argmax(x, out_hw)
+                    torch.cuda.synchronize()
+                except Exception:
+                    # a fault of the launch, named before it is raised
+                    log("kernel", f"upsample_argmax failed on {shape} -> "
+                        f"{out_hw} {dtype} {kind}")
+                    raise
                 want = upsample_argmax.upsample_argmax_reference(x, out_hw)
-                torch.cuda.synchronize()
                 check(got.shape == (shape[0], *out_hw)
                       and got.dtype == torch.int32, f"bad output {got.shape}")
                 max_err = max(max_err, (got - want).abs().max().item())
@@ -916,6 +951,479 @@ def phase_roll_kernel(device, card):
     return launches, mean, bound, max_err
 
 
+#: the int8 kernel's cases: (N, Cin, H, W, Cout, kernel, stride, padding);
+#: the first is conv_out.conv at batch 8, 512x1024 (the timed shape), then
+#: BiSeNet's other blocks at batch 8 (the stem pair, a stage-3 chain conv,
+#: the FFM's 1x1, conv_avg on the pooled map, the context heads, an aux
+#: head) and edges (Cin not a multiple of 32, Cout below a tile, a ragged
+#: pixel tile, one image)
+INT8_CASES = (
+    (8, 256, 64, 128, 256, 3, 1, 1),
+    (8, 3, 512, 1024, 32, 3, 2, 1),
+    (8, 32, 256, 512, 64, 3, 2, 1),
+    (8, 128, 64, 128, 64, 3, 1, 1),
+    (8, 384, 64, 128, 256, 1, 1, 0),
+    (8, 1024, 1, 1, 128, 1, 1, 0),
+    (8, 128, 32, 64, 128, 3, 1, 1),
+    (8, 128, 64, 128, 64, 3, 1, 1),
+    (1, 40, 9, 13, 19, 3, 1, 1),
+    (3, 64, 7, 11, 96, 1, 1, 0),
+    (1, 3, 37, 29, 32, 3, 2, 1),
+)
+INT8_DTYPES = (("bfloat16", "bfloat16"), ("float32", "float32"),
+               ("bfloat16", "float32"), ("float32", "bfloat16"))
+
+
+def int8_inputs(device, case, in_dtype, seed=0):
+    """Random activations (std 2), int8 weights, per-channel scales and
+    biases and the activations' inverse scale (their absmax / 127) of one
+    int8 case, on ``device``."""
+    import torch
+
+    n, cin, h, w, cout, ks, _, _ = case
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((n, cin, h, w)) * 2).astype(
+        np.float32)).to(device=device, dtype=getattr(torch, in_dtype))
+    w8 = torch.from_numpy(rng.integers(-127, 128, (cout, cin, ks, ks)).astype(
+        np.int8)).to(device)
+    out_mul = torch.from_numpy(rng.uniform(1e-5, 1e-3, cout).astype(
+        np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(
+        np.float32)).to(device)
+    inv = (127.0 / x.float().abs().max()).reshape(())
+    return x, w8, out_mul, bias, inv
+
+
+def int8_library(x, w8, out_mul, bias, inv, stride, pad, out_dtype):
+    """The one-library-call yardstick (the port never calls it): the
+    quantize, im2col of the int8 values (as fp16, exact to 2048, by
+    F.unfold), torch._int_mm (cuBLASLt s8 x s8 -> s32), then the same
+    fp32 epilogue, back to NCHW."""
+    import torch
+    import torch.nn.functional as F
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda.int8_conv import (
+        quantize_activation)
+
+    n, cin, h, w = x.shape
+    cout, _, ks, _ = w8.shape
+    out_h = (h + 2 * pad - ks) // stride + 1
+    out_w = (w + 2 * pad - ks) // stride + 1
+    xq = quantize_activation(x, inv)
+    cols = F.unfold(xq.to(torch.float16), ks, padding=pad, stride=stride)
+    a = cols.transpose(1, 2).reshape(-1, cin * ks * ks).to(torch.int8)
+    acc = torch._int_mm(a, w8.reshape(cout, -1).t())
+    y = torch.relu(acc.float() * out_mul + bias).to(out_dtype)
+    return y.reshape(n, out_h, out_w, cout).permute(0, 3, 1, 2).contiguous()
+
+
+def bound_int8_conv(case, in_elem, out_elem):
+    """Bound of one int8_conv call: it reads the activations and the int8
+    weights and writes the output; its work is the s8 x s8 product (2 a
+    multiply-add, on the tensor cores), the quantize (a multiply) and the
+    epilogue (a multiply, an add, a max) in fp32."""
+    n, cin, h, w, cout, ks, stride, pad = case
+    out_h = (h + 2 * pad - ks) // stride + 1
+    out_w = (w + 2 * pad - ks) // stride + 1
+    m = n * out_h * out_w
+    nbytes = (n * cin * h * w * in_elem + m * cout * out_elem
+              + cout * cin * ks * ks + 8 * cout + 4)
+    return roofline(nbytes, {"int8_tensor": 2 * m * cout * cin * ks * ks,
+                             "fp32": n * cin * h * w + 3 * m * cout})
+
+
+def phase_int8_kernel(device, card):
+    """The int8 conv kernel bit for bit against its plain version on every
+    case x input/output dtype, its counter rising by each call; then at
+    conv_out.conv's shape (8, 256, 64, 128) bf16: the kernel by the chain
+    and by device time, the plain version (a float64 convolution of the
+    int8 values), the library yardstick (im2col + torch._int_mm + the
+    epilogue, checked equal) and cuDNN's bf16 convolution of the same
+    shape (autocast's eager path, the fp model's conv without BN and
+    ReLU), each beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    before = ic.LAUNCHES
+    n, bad, max_err = 0, [], 0.0
+    for case in INT8_CASES:
+        for in_dt, out_dt in INT8_DTYPES:
+            x, w8, out_mul, bias, inv = int8_inputs(device, case, in_dt, n)
+            args = (x, w8, out_mul, bias, inv, case[6], case[7], True,
+                    getattr(torch, out_dt))
+            got = ic.int8_conv(x, w8, ic.pack_weights(w8), *args[2:])
+            want = ic.int8_conv_reference(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            if not torch.equal(got, want):
+                bad.append((case, in_dt, out_dt, err))
+            n += 1
+    launches = ic.LAUNCHES - before
+    check(not bad, f"int8_conv != plain on {len(bad)} of {n} cases: {bad}")
+    check(launches == n, f"int8_conv LAUNCHES rose by {launches}, not {n}")
+    log("int8-kernel", f"{n} cases bit-identical to the plain version "
+        f"(max |kernel - plain| {max_err}); launches counted {launches}")
+
+    case = INT8_CASES[0]
+    x, w8, out_mul, bias, inv = int8_inputs(device, case, "bfloat16")
+    packed = ic.pack_weights(w8)
+    stride, pad = case[6], case[7]
+    kernel = functools.partial(ic.int8_conv, x, w8, packed, out_mul, bias,
+                               inv, stride, pad, True, torch.bfloat16)
+    plain = functools.partial(ic.int8_conv_reference, x, w8, out_mul, bias,
+                              inv, stride, pad, True, torch.bfloat16)
+    library = functools.partial(int8_library, x, w8, out_mul, bias, inv,
+                                stride, pad, torch.bfloat16)
+    check(torch.equal(library(), plain()), "the library yardstick differs "
+          "from the plain version")
+    w_bf16 = torch.randn(case[4], case[1], 3, 3, device=device,
+                         dtype=torch.bfloat16)
+    cudnn = functools.partial(F.conv2d, x, w_bf16, padding=pad)
+    times = {}
+    for name, fn, iters in (("kernel", kernel, 50), ("plain", plain, 2),
+                            ("library", library, 20), ("cudnn", cudnn, 50),
+                            ("cudnn", cudnn, 50), ("library", library, 20),
+                            ("plain", plain, 2), ("kernel", kernel, 50)):
+        times.setdefault(name, []).append(
+            cuda_ms(fn, iters, warmup=1 if name == "plain" else 3))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    dev, _ = device_ms(kernel, ("int8_conv",))
+    cudnn_dev, _ = device_ms(cudnn)
+    bound = bound_int8_conv(case, 2, 2)
+    log("int8-kernel", f"conv_out.conv {case[:5]} 3x3 bf16 -> bf16, turns "
+        f"A B C D D C B A: kernel {mean['kernel']:.4f} ms "
+        f"{[round(t, 4) for t in times['kernel']]} (device {dev:.4f}), plain "
+        f"{mean['plain']:.4f} {[round(t, 4) for t in times['plain']]}, "
+        f"library (im2col + _int_mm + epilogue) {mean['library']:.4f} "
+        f"{[round(t, 4) for t in times['library']]}, cuDNN bf16 conv "
+        f"{mean['cudnn']:.4f} {[round(t, 4) for t in times['cudnn']]} "
+        f"(device {cudnn_dev:.4f}); bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"share of the bound {bound[0] / dev:.3f} by device time | {card}")
+    return {"max_err": max_err, "ms": mean["kernel"],
+            "plain_ms": mean["plain"], "library_ms": mean["library"],
+            "device_ms": dev, "cudnn_bf16_ms": mean["cudnn"],
+            "cudnn_bf16_device_ms": cudnn_dev, "bound": bound,
+            "shape": list(case)}
+
+
+def int8_eval_launches(ev):
+    """Launches of upsample_argmax and int8_conv so far: each wrapper's
+    count, less the calls that only recorded into a captured graph, plus
+    the graph replays' (train/evaluate.py)."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import (
+        upsample_argmax as ua)
+
+    counters = {"upsample_argmax": ua, "int8_conv": ic}
+    return {name: m.LAUNCHES - ev.CAPTURED_LAUNCHES[name]
+            + ev.REPLAYED_LAUNCHES[name] for name, m in counters.items()}
+
+
+def reset_eval_counts(ev):
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import (
+        upsample_argmax as ua)
+
+    ua.LAUNCHES = ic.LAUNCHES = 0
+    for counts in (ev.CAPTURED_LAUNCHES, ev.REPLAYED_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+#: blocks each --quantize_filter quantizes in BiSeNet (tests/
+#: test_torch_quantize.py holds them against JAX's)
+QUANT_BLOCKS = {"all": 35, "head": 1, "heads_cp": 9, "backbone": 26,
+                "deep": 25, "head_ch": 3, "head_ffm": 2, "head_stem": 3}
+
+
+def kernel_launches_seen(prof, names):
+    """Launches of each kernel the profile ``prof`` saw on the card, by
+    kernel name (``names``: {counter's name: substring of the kernel's
+    name}); graph replays' kernels included."""
+    from torch.autograd import DeviceType
+
+    seen = {name: 0 for name in names}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, part in names.items():
+            if part in e.key:
+                seen[name] += e.count
+    return seen
+
+
+#: the kernels' names in csrc/ (the profiler's keys hold them)
+INT8_KERNEL_NAMES = {"upsample_argmax": "upsample_argmax_band_kernel",
+                     "int8_conv": "int8_conv_kernel"}
+
+
+def phase_int8_slice():
+    """The slice's main path: the --domain_shift CLI with --quantize_int8
+    (filter all) and --eval_scan_window 2 on a 4-image 1024x512 tree, bf16,
+    profiled (the counts reset before and read after: eager, warm-up and
+    replayed launches, each held equal to the kernels the profiler saw on
+    the card), and every int8 block's eager call in that run (the window's
+    warm-up: the 35 blocks at their own shapes on the run's activations)
+    held bit for bit against the plain version on the same inputs; then
+    every --quantize_filter with both --quantize_clip values, eager
+    (launches = blocks x batches; filter all equal to the windowed run);
+    then head_ch in fp32 on the card against the CPU (bound 1e-3)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.ops import quantize
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+    from dasemanticsegmentationaml_tpu_torch.utils.config import (
+        QUANTIZE_FILTERS)
+
+    kept = []                     # (x, the other arguments, the output)
+    wrapper = quantize.int8_conv
+
+    def int8_conv_kept(x, *args):
+        out = wrapper(x, *args)
+        if not torch.cuda.is_current_stream_capturing():
+            kept.append((x, args, out))
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        write_cityscapes(root)
+        argv = ["--root", root, "--domain_shift", "True", "--crop_height",
+                "512", "--crop_width", "1024", "--eval_batch_size", "2",
+                "--quantize_int8", "True", "--calib_batches", "2"]
+        quantize.int8_conv = int8_conv_kept
+        try:
+            reset_eval_counts(ev)
+            replays = ev.GRAPH_REPLAYS
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = cli.main(argv + ["--quantize_filter", "all",
+                                       "--eval_scan_window", "2", "--dtype",
+                                       "bfloat16", "--cuda", "0"])
+                secs = time.perf_counter() - t0
+            launches = int8_eval_launches(ev)
+        finally:
+            quantize.int8_conv = wrapper
+        n_replays = ev.GRAPH_REPLAYS - replays
+        seen = kernel_launches_seen(prof, INT8_KERNEL_NAMES)
+        log("int8-slice", f"--domain_shift --quantize_int8 (all) "
+            f"--eval_scan_window 2, bf16 cuda:0, profiled: {res} in "
+            f"{secs:.2f} s host time (set-up and calibration included); "
+            f"launches {launches}, graph replays {n_replays}; kernels the "
+            f"profiler saw on the card {seen}")
+        check(math.isfinite(res["miou"]) and 0.0 <= res["miou"] <= 1.0,
+              f"bad mIoU {res['miou']}")
+        check(launches["int8_conv"] > 0 and launches["upsample_argmax"] > 0,
+              f"the main path did not launch both kernels: {launches}")
+        check(n_replays > 0, "no window was replayed")
+        check(seen == launches, f"the counted launches {launches} are not "
+              f"the kernels the card ran {seen}")
+        bad, shapes = [], set()
+        for x, args, out in kept:
+            w8, _packed, out_mul, bias, inv, stride, pad, relu, dtype = args
+            want = ic.int8_conv_reference(x, w8, out_mul, bias, inv, stride,
+                                          pad, relu, dtype)
+            shapes.add((tuple(x.shape), tuple(w8.shape), stride))
+            if not torch.equal(out, want):
+                bad.append((tuple(x.shape), tuple(w8.shape), stride, (
+                    out.float() - want.float()).abs().max().item()))
+        log("int8-slice", f"{len(kept)} eager int8 block calls of the main "
+            f"path ({len(shapes)} distinct input x weight x stride) against "
+            f"the plain version on the same inputs: {len(bad)} differ {bad}")
+        check(len(kept) == QUANT_BLOCKS["all"], f"{len(kept)} eager int8 "
+              f"calls kept, expected one per block "
+              f"({QUANT_BLOCKS['all']})")
+        check(not bad, "int8_conv != plain on the main path's blocks")
+        del kept[:]
+        for clip in ("absmax", "p999"):
+            for qfilter in QUANTIZE_FILTERS:
+                reset_eval_counts(ev)
+                t0 = time.perf_counter()
+                r = cli.main(argv + ["--quantize_filter", qfilter,
+                                     "--quantize_clip", clip, "--dtype",
+                                     "bfloat16", "--cuda", "0"])
+                n = int8_eval_launches(ev)["int8_conv"]
+                log("int8-slice", f"{qfilter:9s} {clip:6s}: precision "
+                    f"{r['precision']:.6f} mIoU {r['miou']:.6f}, int8_conv "
+                    f"launches {n}, {time.perf_counter() - t0:.2f} s")
+                check(math.isfinite(r["miou"]), f"bad mIoU {r}")
+                check(n == 2 * QUANT_BLOCKS[qfilter],
+                      f"{qfilter}: {n} int8 launches, expected "
+                      f"{2 * QUANT_BLOCKS[qfilter]}")
+                if qfilter == "all" and clip == "absmax":
+                    check(r == res, f"all, eager {r} != the window's {res}")
+        fp32 = argv + ["--quantize_filter", "head_ch", "--dtype", "float32"]
+        gpu = cli.main(fp32 + ["--cuda", "0"])
+        cpu = cli.main(fp32 + ["--cuda", "cpu"])
+        d_miou = abs(gpu["miou"] - cpu["miou"])
+        d_prec = abs(gpu["precision"] - cpu["precision"])
+        log("int8-slice", f"head_ch fp32 cuda:0 {gpu} vs cpu {cpu}: |dmIoU| "
+            f"{d_miou:.3e}, |dprecision| {d_prec:.3e} (bound 1e-3)")
+        check(d_miou <= 1e-3 and d_prec <= 1e-3, "int8 fp32 gpu vs cpu CLI")
+    return launches
+
+
+def eval_batches(device, n=16, batch=8, seed=11):
+    """``n`` prepared bf16 batches of ``batch`` at 512x1024 on ``device``,
+    labels with the ignore label."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        images = torch.from_numpy(rng.integers(
+            0, 256, (batch, 512, 1024, 3), dtype=np.uint8)).pin_memory()
+        labels = torch.from_numpy(rng.integers(
+            0, 20, (batch, 512, 1024), dtype=np.uint8)).pin_memory()
+        labels[labels == 19] = 255
+        out.append(prepare_batch(images, labels, device=device,
+                                 dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    return out
+
+
+def eval_run(model, batches, device, k, graphs, fetch_timeout=900.0):
+    """One pass of ``eval_counts`` over the fixed batches (bf16, window
+    ``k``, the windows kept in ``graphs``): (seconds by the host clock to
+    the last result, the counts)."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import eval_counts
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist, correct, total = eval_counts(model, batches, 19,
+                                       prepare=lambda b: b, device=device,
+                                       amp_dtype=torch.bfloat16,
+                                       scan_window=k, graphs=graphs,
+                                       fetch_timeout=fetch_timeout)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, (hist.cpu(), int(correct), total)
+
+
+def eval_busy(call, n_batches):
+    """Device busy share of one ``call`` of ``eval_run``: the profiler's
+    kernel time (graph replays' kernels included) over its wall time; the
+    kernels' ms per batch; and the four heaviest kernels' (name, ms per
+    batch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        secs, _ = call()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:4]
+    return (busy_ms / (secs * 1e3), busy_ms / n_batches,
+            [(e.key[:60], round(e.self_device_time_total / 1e3
+                                / n_batches, 4)) for e in top])
+
+
+def phase_eval_window(device, card, base_ev=None):
+    """Eval images/s of a fixed list of 16 prepared bf16 batches of 8 at
+    512x1024 (no loader; the fetch watchdog's thread as in the CLI),
+    seeded weights: eager (with and without the fetch watchdog) against
+    --eval_scan_window 8 and 4, in turns A B C D D C B A, then the int8
+    models of head_ch and all (calibrated on 4 batches of 8, timed; and on
+    4 images) eager against window 8, A B B A; each configuration's
+    counts equal eager's bit for bit, and its
+    device busy share and kernel ms per batch from one profiled pass.
+    ``base_ev``: another version's train/evaluate module (--baseline),
+    whose eager pass joins the bf16 turns as the first and last."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import build_bisenet
+    from dasemanticsegmentationaml_tpu_torch.ops.quantize import (
+        PRESET_FILTERS, quantize_model)
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+
+    model = build_bisenet(19, device=device,
+                          generator=torch.Generator().manual_seed(0)).eval()
+    batches = eval_batches(device)
+    n_images = sum(x.shape[0] for x, _ in batches)
+    models = {"bf16": model}
+    for qfilter in ("head_ch", "all"):
+        calib = [x for x, _ in batches[:4]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[f"int8 {qfilter}"], _ = quantize_model(
+            model, calib, filter_fn=PRESET_FILTERS[qfilter],
+            amp_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        secs8 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        quantize_model(model, [x[:1] for x in calib],
+                       filter_fn=PRESET_FILTERS[qfilter],
+                       amp_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        secs1 = time.perf_counter() - t0
+        log("eval-window", f"calibration + build, {qfilter}: 4 batches of 8 "
+            f"{secs8 * 1e3:.1f} ms; 4 batches of 1 (--calib_batches 4 at "
+            f"the CLI's --eval_batch_size 1) {secs1 * 1e3:.1f} ms | {card}")
+    results = {}
+    for name, m in models.items():
+        # (label, window, fetch watchdog's timeout); the watchdog's own
+        # cost is eager with it against eager without it
+        configs = [("eager", 0, 900.0), ("window 8", 8, 900.0)]
+        if name == "bf16":
+            configs[1:1] = [("eager, no watchdog", 0, 0.0)]
+            configs.append(("window 4", 4, 900.0))
+        runs = {label: [] for label, _, _ in configs}
+        graphs = {label: ev.EvalGraphs() for label, _, _ in configs}
+        calls = {label: functools.partial(eval_run, m, batches, device, k,
+                                          graphs[label], fetch_timeout=t)
+                 for label, k, t in configs}
+        for call in calls.values():  # warm-up: builds, taps, captures
+            call()
+        order = [label for label, _, _ in configs]
+        order += order[::-1]
+        if base_ev is not None and name == "bf16":
+            base_fn = functools.partial(base_ev.eval_counts, model, batches,
+                                        19, prepare=lambda b: b,
+                                        device=device,
+                                        amp_dtype=torch.bfloat16)
+            base_fn()
+            runs["baseline"] = []
+            order = ["baseline"] + order + ["baseline"]
+        ref = None
+        for label in order:
+            if label == "baseline":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                base_fn()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            else:
+                secs, counts = calls[label]()
+                ref = ref or counts
+                check(torch.equal(counts[0], ref[0]) and counts[1] == ref[1],
+                      f"{name} {label}: counts differ from eager")
+            runs[label].append(n_images / secs)
+        busy = {label: eval_busy(call, len(batches))
+                for label, call in calls.items()}
+        for label, rate in runs.items():
+            extra = ("" if label == "baseline" else
+                     f", device busy {busy[label][0]:.3f}, kernels "
+                     f"{busy[label][1]:.3f} ms/batch, heaviest "
+                     f"{busy[label][2]}")
+            log("eval-window", f"{name}, {label}: mean "
+                f"{sum(rate) / len(rate):.1f} images/s, turns "
+                f"{[round(r, 1) for r in rate]}{extra} | {card}")
+        results[name] = {label: (sum(v) / len(v), busy.get(label))
+                         for label, v in runs.items()}
+    return results
+
+
 def seeded_backbone(device):
     """A full-width STDCNet813 with seeded weights and running statistics,
     in eval mode."""
@@ -1108,6 +1616,7 @@ def phase_train():
 
     from dasemanticsegmentationaml_tpu_torch import cli
     from dasemanticsegmentationaml_tpu_torch.models.bisenet import BiSeNet
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
     from dasemanticsegmentationaml_tpu_torch.utils.weights import (
         load_reference_state)
 
@@ -1123,19 +1632,25 @@ def phase_train():
                 "--validation_step", "1", "--checkpoint_step", "1",
                 "--dtype", "bfloat16", "--cuda", "0",
                 "--tensorboard", "False", "--save_model_path", save,
-                "--jsonl_log", log_path]
+                "--jsonl_log", log_path, "--eval_scan_window", "2"]
         reset_ce_counts()
+        replays = ev.GRAPH_REPLAYS
         t0 = time.perf_counter()
         res = cli.main(argv)
         secs = time.perf_counter() - t0
         launches = ce_counts()
+        replays = ev.GRAPH_REPLAYS - replays
         with open(log_path) as f:
             losses = [json.loads(line)["loss"] for line in f]
         steps = epochs * steps_per_epoch
         log("train", f"supervised CLI, batch 8, 1024x512, bf16, {steps} "
-            f"steps: {res}; epoch losses {losses}; {secs:.2f} s host time "
-            f"(set-up, validation and checkpoints included); launches "
-            f"{launches}")
+            f"steps, validation windows of 2: {res}; epoch losses "
+            f"{losses}; {secs:.2f} s host time (set-up, validation and "
+            f"checkpoints included); launches {launches} (upsample_argmax: "
+            f"the wrapper's calls), graph replays {replays}")
+        # one validation (epoch 1) and the final evaluation, two windows
+        # each, the second replaying the first's capture
+        check(replays == 4, f"{replays} window replays, expected 4")
         check(launches["fused_ce_fwd"] == 3 * steps
               and launches["fused_ce_bwd"] == 3 * steps,
               f"fused CE launches {launches}, expected {3 * steps} each")
@@ -2674,6 +3189,75 @@ def time_train_step(device, card, fns=None):
     return summary
 
 
+def time_train_prefetch(device, card, n=40):
+    """The supervised loop as ``train/supervised.py::train`` runs it: the
+    bf16 train step at batch 8, 1024x512 on batches that ``device_prefetch``
+    pulls from ``prepare_batch`` of pinned uint8 host batches, with the
+    fetch watchdog (its 900 s default: each fetch in its daemon thread)
+    and without it (0: fetches in the calling thread), in turns A B B A:
+    ms per step by the host's clock over ``n`` steps, the last loss read
+    back, and the median ms a step waits in the prefetcher's ``next``
+    (the watchdog's thread hop is there)."""
+    import statistics
+
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        FETCH_TIMEOUT, device_prefetch, prepare_batch)
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet, trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.train.optim import make_optimizer
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    model = build_bisenet(19, device=device,
+                          generator=torch.Generator().manual_seed(0)).train()
+    opt = make_optimizer("sgd", trainable_parameters(model), 0.01,
+                         momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(model, opt, amp_dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    host = [(torch.from_numpy(rng.integers(0, 256, (8, 1024, 512, 3),
+                                           dtype=np.uint8)).pin_memory(),
+             torch.from_numpy(np.where(
+                 rng.random((8, 1024, 512)) < 0.05, 255,
+                 rng.integers(0, 19, (8, 1024, 512))).astype(
+                     np.uint8)).pin_memory()) for _ in range(4)]
+
+    def loop(timeout, steps):
+        batches = (prepare_batch(*host[i % len(host)], device=device,
+                                 dtype=torch.bfloat16) for i in range(steps))
+        waits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = device_prefetch(batches, transfer_timeout=timeout, device=device)
+        while True:
+            t1 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            waits.append(time.perf_counter() - t1)
+            loss = step(*batch)
+        float(loss)
+        return ((time.perf_counter() - t0) * 1e3 / steps,
+                statistics.median(waits) * 1e3)
+
+    configs = {"watchdog on": FETCH_TIMEOUT, "watchdog off": 0.0}
+    for timeout in configs.values():
+        loop(timeout, 3)           # warm-up
+    runs = {label: [] for label in configs}
+    for label in ("watchdog on", "watchdog off", "watchdog off",
+                  "watchdog on"):
+        runs[label].append(loop(configs[label], n))
+    for label, turns in runs.items():
+        mean = sum(ms for ms, _ in turns) / len(turns)
+        log("timing", f"supervised loop through device_prefetch, bf16, batch "
+            f"8, 1024x512, {n} steps, {label}: mean {mean:.3f} ms/step = "
+            f"{8000.0 / mean:.1f} images/s, turns "
+            f"{[round(ms, 3) for ms, _ in turns]}; median wait in next() "
+            f"{[round(w, 3) for _, w in turns]} ms | {card}")
+    return runs
+
+
 def interp_pass(shape, out_hw):
     """Elements of the cheaper first pass of a separable align_corners
     upsample of (B, C, h, w) to ``out_hw``: rows interpolated at (B, C, h,
@@ -2940,6 +3524,7 @@ def compare_baseline(device, card, root):
         "baseline": (base_fs.fold_cat_params, base_fs.fused_cat_bottleneck),
         "kernel": (fs.fold_cat_params, fs.fused_cat_bottleneck)})
     time_steps_against_baseline(device, card, root)
+    phase_eval_window(device, card, baseline_module(root, "train.evaluate"))
 
 
 def main(argv=None):
@@ -2967,6 +3552,7 @@ def main(argv=None):
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import copy_probe as cp
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import tile_roll as tr
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
     from dasemanticsegmentationaml_tpu_torch.ops.cuda.build import BUILD_LOGS
@@ -2982,13 +3568,13 @@ def main(argv=None):
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    builds = ([lib._library for lib in (ua, fc, fs, cp, tr)]
+    builds = ([lib._library for lib in (ua, fc, fs, cp, tr, ic)]
               + [na.library, native.library])
     with futures.ThreadPoolExecutor(len(builds)) as pool:
         for job in [pool.submit(build) for build in builds]:
             job.result()
     sources = ("upsample_argmax", "fused_ce", "fused_stdc", "copy_probe",
-               "tile_roll")
+               "tile_roll", "int8_conv")
     log("build", f"{', '.join(f'{n}.cu' for n in sources)} (nvcc), "
         f"native/augment.cpp (g++: {na.library_path()}) and "
         f"native/loader.cpp (g++: "
@@ -3016,6 +3602,7 @@ def main(argv=None):
     max_err = phase_kernel(device)
     ce_errs = phase_ce_kernel(device)
     stdc_errs = phase_stdc_kernel(device)
+    int8 = phase_int8_kernel(device, card)
     (copy_launches, copy_times, copy_others, copy_bound, copy_err,
      copy_turns) = phase_copy_probe(device, card)
     roll_launches, roll_times, roll_bound, roll_err = phase_roll_kernel(
@@ -3024,6 +3611,7 @@ def main(argv=None):
     stdc_launches, h = phase_stdc_path(device, backbone)
     model = phase_model(device)
     eval_launches = phase_slice()
+    int8_launches = phase_int8_slice()
     train_launches = phase_train()
     phase_train_parity(device)
     phase_augment(device, card)
@@ -3032,6 +3620,8 @@ def main(argv=None):
     phase_resume(device, card)
     phase_da_resume(device, card)
     times = phase_timing(device, model, card)
+    phase_eval_window(device, card)
+    time_train_prefetch(device, card)
     stdc_times = time_stdc(device, backbone, h, card)
     time_da_step(device, card)
     phase_loader(card, headers, times["train"]["kernel"][0] / 8)
@@ -3097,7 +3687,14 @@ def main(argv=None):
         kernel_record("tile_roll", ROLL_SOURCE, ROLL_REPLACES, roll_launches,
                       roll_err, roll_times["kernel"], roll_times["plain"],
                       roll_bound, roll_times["library"],
-                      shape=[16384, 8192], dtype="bfloat16")]}))
+                      shape=[16384, 8192], dtype="bfloat16"),
+        kernel_record("int8_conv", INT8_SOURCE, INT8_REPLACES,
+                      int8_launches["int8_conv"], int8["max_err"],
+                      int8["ms"], int8["plain_ms"], int8["bound"],
+                      int8["library_ms"], device_ms=int8["device_ms"],
+                      cudnn_bf16_ms=int8["cudnn_bf16_ms"],
+                      cudnn_bf16_device_ms=int8["cudnn_bf16_device_ms"],
+                      shape=int8["shape"], dtype="bfloat16")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

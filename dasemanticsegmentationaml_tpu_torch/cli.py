@@ -24,6 +24,16 @@ native C++ ops). ``--augment_labels`` warps the labels with the image.
 rotation is a TPU workaround the port does not need. ``--profile_dir``
 writes a ``torch.profiler`` trace of the first training steps.
 
+``--eval_scan_window K`` evaluates K same-shaped batches per CUDA-graph
+replay (``train/evaluate.py``), for ``--domain_shift`` and for the
+validations of training. ``--domain_shift True --quantize_int8 True``
+calibrates on the first ``--calib_batches`` val batches and evaluates
+the int8 model (``ops/quantize.py``: the blocks ``--quantize_filter``
+picks run the hand-written int8 kernel, with ``--quantize_clip``'s
+activation scales; JAX cli.py:477-489). ``--worker_timeout`` and
+``--fetch_timeout`` are the loader's and the prefetch's watchdogs
+(``data/pipeline.py``).
+
 Every checkpoint also writes the full train state under
 ``<save_model_path>/state/`` (``utils/checkpoint.py``), and ``--resume
 <save_model_path>/state`` continues a run from it: the model, the
@@ -39,9 +49,12 @@ decodes with PIL, to the same bytes.
 
 ``--cuda`` picks the device: ``cpu``, or the index ``n`` of ``cuda:n``;
 without CUDA the latter stops with ``SystemExit``, it never drops to the
-CPU. int8, export and multi-device or multi-process runs stop with
+CPU. Export and multi-device or multi-process runs stop with
 ``SystemExit("...: not ported yet: see ROADMAP.md")``; ``--iter_size > 1``
-with ``--domain_adaptation`` stops with the JAX package's reason.
+with ``--domain_adaptation`` stops with the JAX package's reason. The
+flags that only those paths read, and ``--use_gpu`` (``INERT_FLAGS``),
+are accepted and do nothing; a value other than the default prints a
+note.
 
 Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --root <cityscapes> --cuda 0
@@ -52,12 +65,15 @@ Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --root_target <cityscapes> --root <cityscapes> --cuda 0 \
           [--aug_type H-RP [--host_augment True] [--augment_labels True]]
       python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
-          --root <cityscapes> --pretrain_path best.pth --cuda 0
+          --root <cityscapes> --pretrain_path best.pth --cuda 0 \
+          [--eval_scan_window 8] [--quantize_int8 True \
+          --quantize_filter head_ch --calib_batches 4]
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 
 import torch
@@ -69,13 +85,14 @@ from .data.host_augment import HostAugment
 from .data.pipeline import Loader, prepare_batch
 from .models.bisenet import build_bisenet, trainable_parameters
 from .models.discriminator import build_discriminator
+from .ops.quantize import PRESET_FILTERS, quantize_model
 from .train.adversarial import make_da_step, train_da
-from .train.evaluate import evaluate
+from .train.evaluate import EvalGraphs, evaluate
 from .train.optim import GradientAccumulator, make_optimizer
 from .train.supervised import make_train_step, train
 from .utils import state_io
 from .utils.checkpoint import make_checkpoint_fn
-from .utils.config import parse_args
+from .utils.config import build_parser, parse_args
 from .utils.logging_util import JsonlLogger, Profiler, make_writer
 from .utils.weights import load_pretrain, load_pretrain_discriminator
 
@@ -87,6 +104,26 @@ DA_ITER_SIZE = ("--iter_size > 1 is supervised-only: the 4-phase DA step "
 FAST_GEOMETRY_NOTE = ("--fast_device_geometry: accepted and inert on the "
                       "port (its 3-shear rotation avoids the TPU's slow "
                       "gathers; B-GS-R rotates by one gather here)")
+#: flags the port parses and does not read, each with the note printed
+#: when it is given a value other than its default: the ones only an
+#: unported path reads (that path itself stops in ``check_ported``), and
+#: ``--use_gpu``, which asks for nothing here
+INERT_FLAGS = {
+    "use_gpu": "--use_gpu: accepted for CLI compatibility; --cuda picks "
+               "the device",
+    "sync_bn": "--sync_bn: inert; only multi-device runs read it, and "
+               "they are " + NOT_PORTED,
+    "process_id": "--process_id: inert; only multi-process runs read it, "
+                  "and they are " + NOT_PORTED,
+    "eval_process_shard": "--eval_process_shard: inert; only multi-process "
+                          "runs read it, and they are " + NOT_PORTED,
+    "export_batches": "--export_batches: inert; only --export_model reads "
+                      "it, and it is " + NOT_PORTED,
+    "export_spatial": "--export_spatial: inert; only --export_model reads "
+                      "it, and it is " + NOT_PORTED,
+    "export_devices": "--export_devices: inert; only --export_model reads "
+                      "it, and it is " + NOT_PORTED,
+}
 
 
 def resolve_device(cuda: str) -> torch.device:
@@ -115,7 +152,6 @@ def check_ported(args) -> None:
     if args.domain_adaptation and args.iter_size > 1:
         raise SystemExit(DA_ITER_SIZE)
     unported = {
-        "--quantize_int8": args.quantize_int8,
         "--export_model": args.export_model,
         "multi-process runs": (args.coordinator_address is not None
                                or (args.num_processes or 1) > 1),
@@ -267,6 +303,13 @@ def fp32_math():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def inert_flag_notes(args):
+    """The notes of ``INERT_FLAGS`` given a value other than the default."""
+    parser = build_parser()
+    return [note for dest, note in INERT_FLAGS.items()
+            if getattr(args, dest) != parser.get_default(dest)]
+
+
 def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
@@ -274,6 +317,8 @@ def main(argv=None):
     pin = device.type == "cuda"
     if args.fast_device_geometry:
         print(FAST_GEOMETRY_NOTE)
+    for note in inert_flag_notes(args):
+        print(note)
     # HostAugment runs in the loader's decode threads, so --num_workers
     # caps its parallelism (JAX cli.py:340-344)
     host_aug, host_aug_note = resolve_host_augment(
@@ -327,7 +372,8 @@ def main(argv=None):
         remap = False
         aug_train = None
     loader_val = Loader(val_ds, args.eval_batch_size,
-                        num_workers=args.num_workers, pin_memory=pin)
+                        num_workers=args.num_workers, pin_memory=pin,
+                        worker_timeout=args.worker_timeout)
 
     # ---- model ------------------------------------------------------------
     model = build_bisenet(args.num_classes, device=device,
@@ -353,15 +399,32 @@ def main(argv=None):
 
     prepare_val = make_prepare(None, remap)
 
+    # --eval_scan_window: the windows captured by the first evaluation are
+    # replayed by the later ones (each validation of training)
+    graphs = EvalGraphs()
+
     def evaluate_fn(m):
         return evaluate(m, loader_val, args.num_classes, prepare=prepare_val,
                         device=device, use_fused_kernel=args.use_fused_eval,
-                        amp_dtype=amp_dtype)
+                        amp_dtype=amp_dtype,
+                        scan_window=args.eval_scan_window,
+                        fetch_timeout=args.fetch_timeout, graphs=graphs)
 
     with fp32_math() if amp_dtype is None else contextlib.nullcontext():
         if args.domain_shift:
             # eval-only mode (reference train.py:511,519)
-            precision, miou = evaluate_fn(model)
+            eval_model = model
+            if args.quantize_int8:
+                # int8 PTQ (JAX cli.py:477-489): calibrate the activation
+                # scales on the first --calib_batches val batches in eval
+                # mode, fold BN, run the s8 x s8 -> s32 blocks
+                calib = [prepare_val(b)[0] for b in itertools.islice(
+                    iter(loader_val), args.calib_batches)]
+                eval_model, _ = quantize_model(
+                    model, calib,
+                    filter_fn=PRESET_FILTERS[args.quantize_filter],
+                    clip=args.quantize_clip, amp_dtype=amp_dtype)
+            precision, miou = evaluate_fn(eval_model)
             return {"precision": precision, "miou": miou}
         profiler = Profiler(args.profile_dir) if args.profile_dir else None
         try:
@@ -397,7 +460,8 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
     value); Adam and RMSprop take none."""
     loader_train = Loader(train_ds, args.batch_size, shuffle=True,
                           seed=args.seed, drop_last=True,
-                          num_workers=args.num_workers, pin_memory=pin)
+                          num_workers=args.num_workers, pin_memory=pin,
+                          worker_timeout=args.worker_timeout)
     wd = {"sgd": 1e-4}.get(args.optimizer, 0.0)
     optimizer = make_optimizer(
         args.optimizer, trainable_parameters(model, args.use_conv_last),
@@ -434,10 +498,12 @@ def _train_da(args, model, source_ds, target_ds, prepare_source,
     pin = device.type == "cuda"
     loader_source = Loader(source_ds, args.batch_size, shuffle=True,
                            seed=args.seed, drop_last=True,
-                           num_workers=args.num_workers, pin_memory=pin)
+                           num_workers=args.num_workers, pin_memory=pin,
+                           worker_timeout=args.worker_timeout)
     loader_target = Loader(target_ds, args.batch_size, shuffle=True,
                            seed=args.seed + 1, drop_last=True,
-                           num_workers=args.num_workers, pin_memory=pin)
+                           num_workers=args.num_workers, pin_memory=pin,
+                           worker_timeout=args.worker_timeout)
     d_model = build_discriminator(
         args.num_classes, args.depthwise, args.batch_norm, device=device,
         generator=torch.Generator().manual_seed(args.seed + 2))

@@ -27,25 +27,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.quantize import QuantBlock, check_quant_mode
 from ..ops.resize import resize_bilinear_align_corners, upsample_nearest
 from .stdcnet import STDCNet813, _bn
 
 BACKBONES = ("STDCNet813", "CatmodelSmall", "CatNetSmall", "STDC1")
 
 
-class ConvBNReLU(nn.Module):
+class ConvBNReLU(QuantBlock):
     """conv(ks, stride, pad) no-bias + BN + ReLU (reference
-    model_stages.py:11-29)."""
+    model_stages.py:11-29), with the int8 PTQ modes of
+    ``ops/quantize.py::QuantBlock`` (JAX bisenet.py:36-76)."""
 
     def __init__(self, in_chan: int, out_chan: int, ks: int = 3,
-                 stride: int = 1, padding: int = 1, device=None):
+                 stride: int = 1, padding: int = 1, device=None,
+                 quant_mode: str = "off"):
         super().__init__()
         self.conv = nn.Conv2d(in_chan, out_chan, ks, stride=stride,
                               padding=padding, bias=False, device=device)
         self.bn = _bn(out_chan, device)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        self.quant_mode = check_quant_mode(quant_mode)
 
 
 class BiSeNetOutput(nn.Module):

@@ -36,6 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.quantize import QuantBlock, check_quant_mode
+
 
 def _conv(in_c: int, out_c: int, kernel: int, stride: int = 1,
           groups: int = 1, device=None) -> nn.Conv2d:
@@ -47,17 +49,20 @@ def _bn(c: int, device=None) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1, device=device)
 
 
-class ConvX(nn.Module):
-    """conv-BN-ReLU block (JAX stdcnet.py:101; reference stdcnet.py:6-15)."""
+class ConvX(QuantBlock):
+    """conv-BN-ReLU block (JAX stdcnet.py:101; reference stdcnet.py:6-15).
+
+    ``quant_mode`` (int8 PTQ, ``ops/quantize.py::QuantBlock``): "off" is
+    the parity path; "calib" records the input's absmax in eval mode;
+    "int8" runs the folded s8 x s8 -> s32 conv and its fp32 epilogue (eval
+    only)."""
 
     def __init__(self, in_planes: int, out_planes: int, kernel: int = 3,
-                 stride: int = 1, device=None):
+                 stride: int = 1, device=None, quant_mode: str = "off"):
         super().__init__()
         self.conv = _conv(in_planes, out_planes, kernel, stride, device=device)
         self.bn = _bn(out_planes, device)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        self.quant_mode = check_quant_mode(quant_mode)
 
 
 def _chain_channels(in_planes: int, out_planes: int,

@@ -192,7 +192,8 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
     best validation mIoU.
 
     prepare_*(batch, epoch, it) -> (images, labels) on the device (the
-    epoch and step key the source batch's augmentation); profiler: its
+    epoch and step key the source batch's augmentation), fetched two ahead
+    under ``args.fetch_timeout``'s watchdog (JAX :384-385); profiler: its
     ``step()`` is called after each step; evaluate_fn(g) ->
     (precision, miou), called with G in eval mode and G restored to train
     mode after; checkpoint_fn(model, name, dataparallel_prefix=False,
@@ -240,7 +241,9 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
                 yield src_images, src_labels, tgt_images
 
         for src_images, src_labels, tgt_images in device_prefetch(
-                prepared_batches()):
+                prepared_batches(),
+                transfer_timeout=args.fetch_timeout,
+                device=next(g.parameters()).device):
             m = da_step(src_images, src_labels, tgt_images)
             if profiler is not None:
                 profiler.step()

@@ -109,8 +109,9 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
     supervised.py:116-204; reference train.py:63-120).
 
     prepare(batch, epoch, it) -> (images, labels) on the device (the
-    epoch and step key the batch's augmentation); profiler: its ``step()``
-    is called after each step; evaluate_fn(model) ->
+    epoch and step key the batch's augmentation), fetched two ahead under
+    ``args.fetch_timeout``'s watchdog (JAX supervised.py:161); profiler:
+    its ``step()`` is called after each step; evaluate_fn(model) ->
     (precision, miou), called with the model in eval mode, which is
     restored to train mode afterwards (otherwise BN would either stay
     frozen or learn the val set); checkpoint_fn(model, name, optimizer=,
@@ -137,7 +138,10 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
                     break
                 yield prepare(batch, epoch, it)
 
-        for images, labels in device_prefetch(prepared_batches()):
+        for images, labels in device_prefetch(
+                prepared_batches(),
+                transfer_timeout=args.fetch_timeout,
+                device=next(model.parameters()).device):
             losses.append(train_step(images, labels))
             if profiler is not None:
                 profiler.step()

@@ -9,8 +9,10 @@ default, type and choices against the JAX parser. Boolean flags take
 ``--domain_shift False`` truthy, train.py:408-437).
 
 The port runs supervised training, adversarial domain adaptation and
-``--domain_shift`` evaluation; the CLI stops with ``SystemExit`` on the
-flags of paths still to be ported.
+``--domain_shift`` evaluation (with ``--eval_scan_window`` and int8 PTQ);
+the CLI stops with ``SystemExit`` on the flags of paths still to be
+ported, and the flags only those paths read are inert
+(``cli.py::INERT_FLAGS``).
 ``parse_args`` sets ``args.ohem`` as the JAX one does (config.py:255-262).
 """
 
@@ -36,7 +38,8 @@ def str2bool_auto(v):
     return str2bool(v)
 
 
-#: the JAX package's ops/quantize.py::PRESET_FILTERS names
+#: the JAX package's ops/quantize.py::PRESET_FILTERS names (the port's
+#: ops/quantize.py restates them; a test holds the two lists equal)
 QUANTIZE_FILTERS = ("all", "backbone", "deep", "head", "head_ch", "head_ffm",
                     "head_stem", "heads_cp")
 
@@ -68,8 +71,12 @@ _FLAGS = (
     ("--learning_rate_D", float, 1e-3, None,
      "DA: the discriminator's Adam LR (compounding poly decay)"),
     ("--num_workers", int, 4, None, "decode threads"),
-    ("--worker_timeout", float, 120.0, None, _TODO),
-    ("--fetch_timeout", float, 900.0, None, _TODO),
+    ("--worker_timeout", float, 120.0, None,
+     "seconds a sample's decode may take before the loader raises "
+     "PipelineStallError naming it; <= 0 waits for ever"),
+    ("--fetch_timeout", float, 900.0, None,
+     "seconds a batch's fetch (decode wait + prepare_batch) may take "
+     "before PipelineStallError; <= 0 fetches in the caller's thread"),
     ("--num_classes", int, 19, None, "classes"),
     ("--cuda", str, "0", None,
      "device: 'cpu', or the index n of cuda:n (no silent CPU fallback)"),
@@ -125,11 +132,19 @@ _FLAGS = (
     ("--ohem_keep_num", int, 65536, None, "--loss ohem keep count"),
     ("--use_fused_eval", str2bool, True, None,
      "fused upsample+argmax (the CUDA kernel on a CUDA device)"),
-    ("--eval_scan_window", int, 0, None, "accepted; the port has no scan"),
-    ("--quantize_int8", str2bool, False, None, _TODO),
-    ("--calib_batches", int, 4, None, _TODO),
-    ("--quantize_filter", str, "head_ch", QUANTIZE_FILTERS, _TODO),
-    ("--quantize_clip", str, "absmax", ("absmax", "p999"), _TODO),
+    ("--eval_scan_window", int, 0, None,
+     "K > 1: evaluate K same-shaped batches per CUDA-graph replay (eager "
+     "on the CPU)"),
+    ("--quantize_int8", str2bool, False, None,
+     "--domain_shift: int8 PTQ of the conv+BN+ReLU blocks before eval"),
+    ("--calib_batches", int, 4, None,
+     "--quantize_int8: val batches that calibrate the activation scales"),
+    ("--quantize_filter", str, "head_ch", QUANTIZE_FILTERS,
+     "--quantize_int8: the blocks quantized (ops/quantize.py::"
+     "PRESET_FILTERS)"),
+    ("--quantize_clip", str, "absmax", ("absmax", "p999"),
+     "--quantize_int8: activation scale from the absmax or the 99.9th "
+     "percentile"),
     ("--export_model", str, None, None, _TODO),
     ("--export_batches", str, None, None, _TODO),
     ("--export_spatial", str2bool, False, None, _TODO),

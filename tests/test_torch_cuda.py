@@ -288,11 +288,23 @@ def test_augment_on_card_equals_cpu(cuda_device, aug_type):
         assert torch.equal(got[1].cpu(), want[1]), i
 
 
+def _eval_launches(ev):
+    """upsample_argmax's launches so far: its wrapper's count, less the
+    calls that only recorded into a captured graph, plus the graph
+    replays' (``train/evaluate.py``)."""
+    return (ua.LAUNCHES - ev.CAPTURED_LAUNCHES["upsample_argmax"]
+            + ev.REPLAYED_LAUNCHES["upsample_argmax"])
+
+
 @pytest.mark.cuda
-def test_evaluate_reads_back_only_at_the_end(cuda_device):
+@pytest.mark.parametrize("scan_window", [0, 2])
+def test_evaluate_reads_back_only_at_the_end(cuda_device, scan_window):
     """The eval loop (prefetch, model, kernel, histogram, counts) runs in
-    sync-debug mode "error": nothing is read back per batch. Its counts
-    give ``evaluate``'s precision and mIoU, which reads back once."""
+    sync-debug mode "error": nothing is read back per batch, with the
+    fetch watchdog's thread, and with a window of 2 replayed from the
+    graph the first call captured (two batches a replay, the third
+    eager). Its counts give ``evaluate``'s precision and mIoU, which reads
+    back once."""
     from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
         prepare_batch)
     from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
@@ -309,12 +321,15 @@ def test_evaluate_reads_back_only_at_the_end(cuda_device):
                              dtype=torch.bfloat16)
 
     kw = dict(prepare=prepare, device=cuda_device,
-              amp_dtype=torch.bfloat16)
-    ev.eval_counts(model, batches, 19, **kw)  # builds the kernel, the taps
-    before = ua.LAUNCHES
+              amp_dtype=torch.bfloat16, scan_window=scan_window,
+              graphs=ev.EvalGraphs())
+    # builds the kernel, the taps (and captures the window's graph)
+    ev.eval_counts(model, batches, 19, **kw)
+    before, replays = _eval_launches(ev), ev.GRAPH_REPLAYS
     with _sync_debug("error"):
         hist, correct, total = ev.eval_counts(model, batches, 19, **kw)
-    assert ua.LAUNCHES == before + len(batches)
+    assert _eval_launches(ev) == before + len(batches)
+    assert ev.GRAPH_REPLAYS == replays + (1 if scan_window else 0)
     precision, miou = ev.evaluate(model, batches, 19, print_results=False,
                                   **kw)
     assert total == 3 * 2 * 64 * 128 and int(hist.sum()) <= total
@@ -690,3 +705,186 @@ def test_resumed_run_on_card_matches_straight_run(cuda_device, tmp_path,
         diff += float((final_b[key].double() - a.double()).pow(2).sum())
         upd += float((a.double() - start[key].double()).pow(2).sum())
     assert upd > 0 and (diff / upd) ** 0.5 < 0.02
+
+
+def _seeded_eval_model(device, seed=0):
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet)
+
+    return build_bisenet(19, device=device,
+                         generator=torch.Generator().manual_seed(seed)).eval()
+
+
+def _device_batches(device, n, seed=0, b=2, h=64, w=128):
+    """``n`` prepared bf16 batches of ``b`` on ``device`` and a tail of 1."""
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        prepare_batch)
+
+    out = []
+    for i in range(n + 1):
+        images, labels = _pinned_batch(seed + i, n=b if i < n else 1, h=h,
+                                       w=w)
+        out.append(prepare_batch(images, labels, device=device, remap=True,
+                                 dtype=torch.bfloat16))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_window_graph_replay_equals_eager(cuda_device, quantized):
+    """Nine batches of 2 and a tail of 1, bf16: windows of 4 (two replays,
+    a leftover and the tail eager) and 9 (one replay) count what the
+    eager loop counts, bit for bit; also for the int8 model of
+    ``head_ch`` (its blocks captured into the graph too)."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.ops.quantize import (
+        PRESET_FILTERS, quantize_model)
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+
+    model = _seeded_eval_model(cuda_device)
+    batches = _device_batches(cuda_device, 9)
+    if quantized:
+        model, _ = quantize_model(model, [x for x, _ in batches[:2]],
+                                  filter_fn=PRESET_FILTERS["head_ch"],
+                                  amp_dtype=torch.bfloat16)
+    kw = dict(prepare=lambda b: b, device=cuda_device,
+              amp_dtype=torch.bfloat16, graphs=ev.EvalGraphs())
+    want = ev.eval_counts(model, batches, 19, **kw)
+    for k in (4, 9):
+        replays, int8 = ev.GRAPH_REPLAYS, ev.REPLAYED_LAUNCHES["int8_conv"]
+        got = ev.eval_counts(model, batches, 19, scan_window=k, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2] == want[2]
+        assert ev.GRAPH_REPLAYS == replays + 9 // k
+        if quantized:
+            assert ev.REPLAYED_LAUNCHES["int8_conv"] == int8 + 3 * k * (9 // k)
+    assert ic.LAUNCHES > 0 or not quantized
+
+
+@pytest.mark.cuda
+def test_window_replays_the_weights_after_an_optimizer_step(cuda_device):
+    """Validation inside training: a window captured before an SGD step
+    replays the stepped weights and BN statistics (read in place) and
+    counts what eager counts after the step."""
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+    from dasemanticsegmentationaml_tpu_torch.train.optim import make_optimizer
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    model = _seeded_eval_model(cuda_device)
+    batches = _device_batches(cuda_device, 4)
+    kw = dict(prepare=lambda b: b, device=cuda_device,
+              amp_dtype=torch.bfloat16, graphs=ev.EvalGraphs())
+    before = ev.eval_counts(model, batches, 19, scan_window=2, **kw)
+    captures = ev.GRAPH_CAPTURES
+    optimizer = make_optimizer("sgd", trainable_parameters(model), 0.1,
+                               momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(model, optimizer, amp_dtype=torch.bfloat16)
+    model.train()
+    for images, labels in batches[:2]:
+        step(images, labels)
+    model.eval()
+    got = ev.eval_counts(model, batches, 19, scan_window=2, **kw)
+    assert ev.GRAPH_CAPTURES == captures, "the window was captured again"
+    want = ev.eval_counts(model, batches, 19, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(want[0], before[0]), "the step changed nothing"
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device):
+    """A step that cannot be captured (it reads a value back) raises on
+    the card; it never continues eagerly."""
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+
+    class ReadsBack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, 19, 1).to(cuda_device)
+
+        def features(self, x):
+            y = self.conv(x)
+            if y.abs().max().item() < 0:
+                y = -y
+            return y, y, y
+
+    batches = _device_batches(cuda_device, 2)
+    with pytest.raises(RuntimeError):
+        ev.eval_counts(ReadsBack().eval(), batches, 19,
+                       prepare=lambda b: b, device=cuda_device,
+                       scan_window=2)
+
+
+@pytest.mark.cuda
+def test_prefetch_fetches_on_the_consumers_stream(cuda_device):
+    """The fetch watchdog's thread makes the consumer's current stream its
+    own, so a batch's preparation is ordered before the step."""
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        device_prefetch)
+
+    side = torch.cuda.Stream(cuda_device)
+    seen = []
+
+    def batches():
+        for i in range(3):
+            seen.append(torch.cuda.current_stream(cuda_device))
+            yield torch.full((4,), i, device=cuda_device)
+
+    with torch.cuda.stream(side):
+        out = list(device_prefetch(batches(), transfer_timeout=10.0,
+                                   device=cuda_device))
+    torch.cuda.synchronize()
+    assert [int(x[0]) for x in out] == [0, 1, 2]
+    assert all(s == side for s in seen)
+
+
+#: the int8 kernel's cases: (N, Cin, H, W, Cout, kernel, stride, padding);
+#: BiSeNet's blocks (conv_out.conv, the stem pair, a 1x1, conv_avg on the
+#: pooled 1x1 map, a head of 64) and edges (Cin not a multiple of 32,
+#: Cout below a tile, a ragged pixel tile)
+INT8_CASES = (
+    (2, 256, 16, 32, 256, 3, 1, 1),
+    (2, 3, 64, 128, 32, 3, 2, 1),
+    (2, 32, 32, 64, 64, 3, 2, 1),
+    (2, 384, 16, 32, 256, 1, 1, 0),
+    (2, 1024, 1, 1, 128, 1, 1, 0),
+    (2, 128, 16, 32, 64, 3, 1, 1),
+    (1, 40, 9, 13, 19, 3, 1, 1),
+    (3, 64, 7, 11, 96, 1, 1, 0),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_conv_equals_plain_version(cuda_device, case, dtypes):
+    """Bit for bit: the int32 sums are exact and the epilogue is a
+    separate fp32 multiply and add in both."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    n, cin, h, w, cout, ks, stride, pad = case
+    in_dtype, out_dtype = dtypes
+    rng = np.random.default_rng(cin + cout)
+    x = torch.from_numpy((rng.standard_normal((n, cin, h, w)) * 2).astype(
+        np.float32)).to(cuda_device, in_dtype)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (cout, cin, ks, ks)).astype(
+        np.int8)).to(cuda_device)
+    out_mul = torch.from_numpy(rng.uniform(1e-5, 1e-3, cout).astype(
+        np.float32)).to(cuda_device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(
+        np.float32)).to(cuda_device)
+    inv = (127.0 / x.float().abs().max()).reshape(())
+    before = ic.LAUNCHES
+    got = ic.int8_conv(x, w8, ic.pack_weights(w8), out_mul, bias, inv,
+                       stride, pad, True, out_dtype)
+    want = ic.int8_conv_reference(x, w8, out_mul, bias, inv, stride, pad,
+                                  True, out_dtype)
+    torch.cuda.synchronize()
+    assert ic.LAUNCHES == before + 1
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()

@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
         "tools.roll_repro", "train.adversarial", "train.optim",
         "train.supervised", "utils.checkpoint", "utils.logging_util",
         "utils.tb_writer", "utils.state_io", "utils.label_tools",
-        "data.native", "data.cache", "data.transforms_host")
+        "data.native", "data.cache", "data.transforms_host",
+        "ops.quantize", "ops.cuda.int8_conv", "train.evaluate")
     } <= set(modules)
     code = (
         "import importlib, sys\n"
