@@ -13,9 +13,12 @@ earlier upsample+argmax on the kernel phase's cases (its disagreements
 logged), then each kernel and the eval forward, train step or
 features[2:8] chain with it timed in turns A B B A, and last the
 unaugmented train and DA steps, each with its own package's batch
-preparation, in turns A B B A, and last the earlier version's eager eval
-loop against this checkout's eager and windowed ones (the eval-window
-phase with the baseline's pass first and last); nothing else runs
+preparation, in turns A B B A, then the earlier int8 conv beside this
+checkout's at the 24 shapes of the --quantize_filter all blocks (device
+ms, bit for bit, the sum over a batch's 35 launches), and last the
+earlier version's eager eval loop and its own int8 models (head_ch and
+all) windowed by 8 against this checkout's (the eval-window phase with
+the baseline's passes first and last); nothing else runs
 (``compare_baseline``).
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
@@ -45,14 +48,21 @@ phase with the baseline's pass first and last); nothing else runs
                   against their plain PyTorch version on folded weights, at
                   the six STDC813 bottleneck shapes at batch 8, 1024x512 and
                   at edge shapes, in fp32 and bf16; two runs bit-identical.
-5b. int8-kernel - the int8 conv kernel (s8 x s8 -> s32 implicit GEMM with
-                  the fp32 epilogue) against its plain version (a float64
-                  convolution of the int8 values), bit for bit, at
-                  BiSeNet's block shapes at batch 8 and at edge shapes, in
-                  every pair of fp32 / bf16 input and output; then at
-                  conv_out.conv's (8, 256, 64, 128) the kernel, the plain
-                  version, the library yardstick (im2col + torch._int_mm +
-                  the epilogue) and cuDNN's bf16 conv, in turns.
+5b. int8-kernel - the int8 conv kernels (a prologue that quantizes the
+                  input once into NHWC int8 or im2col rows, then the s8 x
+                  s8 -> s32 implicit GEMM on wgmma with the fp32 epilogue)
+                  against their plain version (a float64 convolution of the
+                  int8 values), bit for bit, at BiSeNet's block shapes at
+                  batch 8 and at edge shapes, in every pair of fp32 / bf16
+                  input and output; then each of the 24 shapes of the 35
+                  blocks of --quantize_filter all at batch 8, 512x1024, bit
+                  for bit in bf16, its device ms (prologue and GEMM) beside
+                  cuDNN's bf16 conv of that shape, the bound (and the bound
+                  with the prologue's scratch) and the share, and the sum
+                  over the 35 launches of a batch; then at conv_out.conv's
+                  (8, 256, 64, 128) the kernels, the plain version, the
+                  library yardstick (im2col + torch._int_mm + the
+                  epilogue) and cuDNN's bf16 conv, in turns.
 6. copy-probe  -- every variant of the probe's sweep of the three copy
                   kernels (copy_block, copy_direct, and the TMA ring
                   copy_bounce at 2 and 8 slots over every split between
@@ -316,6 +326,18 @@ def device_ms(fn, match=None, n=20, tries=3):
         by_name[name] = (by_name.get(name, 0.0)
                          + e.self_device_time_total / 1e3 / n)
     return sum(by_name.values()), by_name
+
+
+def device_ms_or_events(fn, match=None):
+    """``device_ms``, or where the profiler keeps seeing no kernel (it
+    happens now and then on the card's machine) the CUDA-event ms of a
+    chain of calls, named so in the by-kernel dict."""
+    try:
+        return device_ms(fn, match)
+    except RuntimeError as e:
+        log("timing", f"{e}; timed by CUDA events instead")
+        ms = cuda_ms(fn, 20)
+        return ms, {"(CUDA events: the profiler saw no kernel)": ms}
 
 
 def ce_calls(fn, x, labels, out_hw):
@@ -1017,19 +1039,137 @@ def int8_library(x, w8, out_mul, bias, inv, stride, pad, out_dtype):
     return y.reshape(n, out_h, out_w, cout).permute(0, 3, 1, 2).contiguous()
 
 
-def bound_int8_conv(case, in_elem, out_elem):
+def bound_int8_conv(case, in_elem, out_elem, scratch=False):
     """Bound of one int8_conv call: it reads the activations and the int8
     weights and writes the output; its work is the s8 x s8 product (2 a
     multiply-add, on the tensor cores), the quantize (a multiply) and the
-    epilogue (a multiply, an add, a max) in fp32."""
+    epilogue (a multiply, an add, a max) in fp32. ``scratch``: also count
+    the prologue's quantized copy of the input, written once and read once
+    (the design's floor rather than the function's)."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
     n, cin, h, w, cout, ks, stride, pad = case
     out_h = (h + 2 * pad - ks) // stride + 1
     out_w = (w + 2 * pad - ks) // stride + 1
     m = n * out_h * out_w
     nbytes = (n * cin * h * w * in_elem + m * cout * out_elem
               + cout * cin * ks * ks + 8 * cout + 4)
+    if scratch:
+        p = ic.plan(*case, 1)
+        nbytes += 2 * n * p.in_h * p.in_w * p.cq * ic.PIECE
     return roofline(nbytes, {"int8_tensor": 2 * m * cout * cin * ks * ks,
                              "fp32": n * cin * h * w + 3 * m * cout})
+
+
+#: the 35 int8 blocks of BiSeNet-STDC813 under --quantize_filter all at
+#: batch 8, 512x1024, as their 24 distinct shapes (N, Cin, H, W, Cout,
+#: kernel, stride, padding), each with its blocks (tests/test_torch_int8_conv.py
+#: holds the kernels' plan for each; the main path's run finds the same 24)
+INT8_ALL_SHAPES = (
+    ((8, 3, 512, 1024, 32, 3, 2, 1), ("features.0",)),
+    ((8, 32, 256, 512, 64, 3, 2, 1), ("features.1",)),
+    ((8, 64, 128, 256, 128, 1, 1, 0), ("features.2.conv_list.0",)),
+    ((8, 128, 64, 128, 64, 3, 1, 1), ("features.2.conv_list.1",
+                                      "features.3.conv_list.1",
+                                      "conv_out16.conv")),
+    ((8, 64, 64, 128, 32, 3, 1, 1), ("features.2.conv_list.2",
+                                     "features.3.conv_list.2")),
+    ((8, 32, 64, 128, 32, 3, 1, 1), ("features.2.conv_list.3",
+                                     "features.3.conv_list.3")),
+    ((8, 256, 64, 128, 128, 1, 1, 0), ("features.3.conv_list.0",)),
+    ((8, 256, 64, 128, 256, 1, 1, 0), ("features.4.conv_list.0",)),
+    ((8, 256, 32, 64, 128, 3, 1, 1), ("features.4.conv_list.1",
+                                      "features.5.conv_list.1")),
+    ((8, 128, 32, 64, 64, 3, 1, 1), ("features.4.conv_list.2",
+                                     "features.5.conv_list.2",
+                                     "conv_out32.conv")),
+    ((8, 64, 32, 64, 64, 3, 1, 1), ("features.4.conv_list.3",
+                                    "features.5.conv_list.3")),
+    ((8, 512, 32, 64, 256, 1, 1, 0), ("features.5.conv_list.0",)),
+    ((8, 512, 32, 64, 512, 1, 1, 0), ("features.6.conv_list.0",)),
+    ((8, 512, 16, 32, 256, 3, 1, 1), ("features.6.conv_list.1",
+                                      "features.7.conv_list.1")),
+    ((8, 256, 16, 32, 128, 3, 1, 1), ("features.6.conv_list.2",
+                                      "features.7.conv_list.2")),
+    ((8, 128, 16, 32, 128, 3, 1, 1), ("features.6.conv_list.3",
+                                      "features.7.conv_list.3")),
+    ((8, 1024, 16, 32, 512, 1, 1, 0), ("features.7.conv_list.0",)),
+    ((8, 1024, 1, 1, 128, 1, 1, 0), ("cp.conv_avg",)),
+    ((8, 1024, 16, 32, 128, 3, 1, 1), ("cp.arm32.conv",)),
+    ((8, 128, 32, 64, 128, 3, 1, 1), ("cp.conv_head32",)),
+    ((8, 512, 32, 64, 128, 3, 1, 1), ("cp.arm16.conv",)),
+    ((8, 128, 64, 128, 128, 3, 1, 1), ("cp.conv_head16",)),
+    ((8, 384, 64, 128, 256, 1, 1, 0), ("ffm.convblk",)),
+    ((8, 256, 64, 128, 256, 3, 1, 1), ("conv_out.conv",)),
+)
+
+
+def time_int8_shapes(device, card, mods):
+    """Each of the 24 shapes of ``INT8_ALL_SHAPES`` in bf16 -> bf16: every
+    version in ``mods`` ({label: an ops/cuda/int8_conv module}) held bit
+    for bit against this checkout's plain version (this checkout's must
+    agree; another version's disagreements are logged), its device ms (the
+    profiler's sums of its kernels, the prologue included, and by kernel),
+    cuDNN's bf16 conv of the same shape (device ms, autocast's eager path),
+    the bound (the function's, and with the prologue's scratch) and the
+    share; one line a shape, then each version's sum over the 35 launches
+    of one batch. Returns {label: sum ms} and cuDNN's sum."""
+    import torch
+    import torch.nn.functional as F
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    sums = {label: 0.0 for label in mods}
+    cudnn_sum, bound_sum, scratch_sum = 0.0, 0.0, 0.0
+    for case, blocks in INT8_ALL_SHAPES:
+        count = len(blocks)
+        x, w8, out_mul, bias, inv = int8_inputs(device, case, "bfloat16", 1)
+        stride, pad = case[6], case[7]
+        want = ic.int8_conv_reference(x, w8, out_mul, bias, inv, stride, pad,
+                                      True, torch.bfloat16)
+        parts, dev = [], {}
+        for label, mod in mods.items():
+            packed = mod.pack_weights(w8)
+            fn = functools.partial(mod.int8_conv, x, w8, packed, out_mul,
+                                   bias, inv, stride, pad, True,
+                                   torch.bfloat16)
+            got = fn()
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            if label == "kernel":
+                check(same, f"int8_conv != plain at {case}")
+            dev[label], by_name = device_ms_or_events(fn, ("int8_conv",))
+            sums[label] += count * dev[label]
+            kernels = ", ".join(f"{k} {v:.4f}"
+                                for k, v in sorted(by_name.items()))
+            parts.append(f"{label} {dev[label]:.4f} ms ({kernels})"
+                         + ("" if same else " DIFFERS from plain"))
+        w_bf16 = torch.randn(case[4], case[1], case[5], case[5],
+                             device=device, dtype=torch.bfloat16)
+        cudnn, _ = device_ms_or_events(functools.partial(
+            F.conv2d, x, w_bf16, stride=stride, padding=pad))
+        cudnn_sum += count * cudnn
+        bound = bound_int8_conv(case, 2, 2)
+        floor = bound_int8_conv(case, 2, 2, scratch=True)
+        bound_sum += count * bound[0]
+        scratch_sum += count * floor[0]
+        log("int8-kernel", f"{case} x{count} ({', '.join(blocks)}), bf16: "
+            f"{'; '.join(parts)}; cuDNN bf16 conv {cudnn:.4f} ms "
+            f"(kernel / cuDNN {dev['kernel'] / cudnn:.3f}); bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), with the scratch "
+            f"{floor[0]:.4f} ({floor[1]}); share "
+            f"{bound[0] / dev['kernel']:.3f} | {card}")
+        del x, w8, want
+    for label, total in sums.items():
+        log("int8-kernel", f"the 35 launches of one --quantize_filter all "
+            f"batch (8, 512x1024), {label}: {total:.4f} device ms; cuDNN's "
+            f"bf16 convs of the same shapes {cudnn_sum:.4f}; bound "
+            f"{bound_sum:.4f} ({scratch_sum:.4f} with the scratch) | {card}")
+    if "baseline" in sums:
+        log("int8-kernel", f"this checkout / the baseline over the 35 "
+            f"launches: {sums['kernel'] / sums['baseline']:.4f} | {card}")
+    torch.cuda.empty_cache()
+    return sums, cudnn_sum
 
 
 def phase_int8_kernel(device, card):
@@ -1066,6 +1206,7 @@ def phase_int8_kernel(device, card):
     check(launches == n, f"int8_conv LAUNCHES rose by {launches}, not {n}")
     log("int8-kernel", f"{n} cases bit-identical to the plain version "
         f"(max |kernel - plain| {max_err}); launches counted {launches}")
+    shapes, cudnn_sum = time_int8_shapes(device, card, {"kernel": ic})
 
     case = INT8_CASES[0]
     x, w8, out_mul, bias, inv = int8_inputs(device, case, "bfloat16")
@@ -1090,12 +1231,14 @@ def phase_int8_kernel(device, card):
         times.setdefault(name, []).append(
             cuda_ms(fn, iters, warmup=1 if name == "plain" else 3))
     mean = {k: sum(v) / len(v) for k, v in times.items()}
-    dev, _ = device_ms(kernel, ("int8_conv",))
+    dev, by_kernel = device_ms(kernel, ("int8_conv",))
     cudnn_dev, _ = device_ms(cudnn)
     bound = bound_int8_conv(case, 2, 2)
     log("int8-kernel", f"conv_out.conv {case[:5]} 3x3 bf16 -> bf16, turns "
         f"A B C D D C B A: kernel {mean['kernel']:.4f} ms "
-        f"{[round(t, 4) for t in times['kernel']]} (device {dev:.4f}), plain "
+        f"{[round(t, 4) for t in times['kernel']]} (device {dev:.4f}: "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in sorted(by_kernel.items()))}"
+        f"), plain "
         f"{mean['plain']:.4f} {[round(t, 4) for t in times['plain']]}, "
         f"library (im2col + _int_mm + epilogue) {mean['library']:.4f} "
         f"{[round(t, 4) for t in times['library']]}, cuDNN bf16 conv "
@@ -1106,7 +1249,8 @@ def phase_int8_kernel(device, card):
             "plain_ms": mean["plain"], "library_ms": mean["library"],
             "device_ms": dev, "cudnn_bf16_ms": mean["cudnn"],
             "cudnn_bf16_device_ms": cudnn_dev, "bound": bound,
-            "shape": list(case)}
+            "shape": list(case), "all_35_device_ms": shapes["kernel"],
+            "all_35_cudnn_bf16_device_ms": cudnn_sum}
 
 
 def int8_eval_launches(ev):
@@ -1141,23 +1285,29 @@ QUANT_BLOCKS = {"all": 35, "head": 1, "heads_cp": 9, "backbone": 26,
 
 def kernel_launches_seen(prof, names):
     """Launches of each kernel the profile ``prof`` saw on the card, by
-    kernel name (``names``: {counter's name: substring of the kernel's
-    name}); graph replays' kernels included."""
+    kernel name (``names``: {counter's name: (kernels, ...)}, each kernel a
+    tuple of substrings of names whose counts add up: a wrapper call
+    launches one of each); graph replays' kernels included. Returns
+    {(counter's name, kernel): count}."""
     from torch.autograd import DeviceType
 
-    seen = {name: 0 for name in names}
+    seen = {(name, kernel): 0 for name, kernels in names.items()
+            for kernel in kernels}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        for name, part in names.items():
-            if part in e.key:
-                seen[name] += e.count
+        for name, kernel in seen:
+            if any(part in e.key for part in kernel):
+                seen[(name, kernel)] += e.count
     return seen
 
 
-#: the kernels' names in csrc/ (the profiler's keys hold them)
-INT8_KERNEL_NAMES = {"upsample_argmax": "upsample_argmax_band_kernel",
-                     "int8_conv": "int8_conv_kernel"}
+#: the kernels' names in csrc/ (the profiler's keys hold them): each
+#: int8_conv call launches its prologue (NHWC or im2col) and its GEMM
+INT8_KERNEL_NAMES = {
+    "upsample_argmax": (("upsample_argmax_band_kernel",),),
+    "int8_conv": (("int8_conv_quantize_kernel", "int8_conv_im2col_kernel"),
+                  ("int8_conv_gemm_kernel",))}
 
 
 def phase_int8_slice():
@@ -1221,8 +1371,9 @@ def phase_int8_slice():
         check(launches["int8_conv"] > 0 and launches["upsample_argmax"] > 0,
               f"the main path did not launch both kernels: {launches}")
         check(n_replays > 0, "no window was replayed")
-        check(seen == launches, f"the counted launches {launches} are not "
-              f"the kernels the card ran {seen}")
+        check(all(n == launches[name] for (name, _), n in seen.items()),
+              f"the counted launches {launches} are not the kernels the "
+              f"card ran {seen}")
         bad, shapes = [], set()
         for x, args, out in kept:
             w8, _packed, out_mul, bias, inv, stride, pad, relu, dtype = args
@@ -1289,14 +1440,17 @@ def eval_batches(device, n=16, batch=8, seed=11):
     return out
 
 
-def eval_run(model, batches, device, k, graphs, fetch_timeout=900.0):
+def eval_run(model, batches, device, k, graphs, fetch_timeout=900.0,
+             ev=None):
     """One pass of ``eval_counts`` over the fixed batches (bf16, window
-    ``k``, the windows kept in ``graphs``): (seconds by the host clock to
-    the last result, the counts)."""
+    ``k``, the windows kept in ``graphs``; ``ev``: another version's
+    train/evaluate module, else this checkout's): (seconds by the host
+    clock to the last result, the counts)."""
     import torch
 
-    from dasemanticsegmentationaml_tpu_torch.train.evaluate import eval_counts
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate
 
+    eval_counts = (ev or evaluate).eval_counts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hist, correct, total = eval_counts(model, batches, 19,
@@ -1329,17 +1483,18 @@ def eval_busy(call, n_batches):
                                 / n_batches, 4)) for e in top])
 
 
-def phase_eval_window(device, card, base_ev=None):
+def phase_eval_window(device, card, base_root=None):
     """Eval images/s of a fixed list of 16 prepared bf16 batches of 8 at
     512x1024 (no loader; the fetch watchdog's thread as in the CLI),
     seeded weights: eager (with and without the fetch watchdog) against
     --eval_scan_window 8 and 4, in turns A B C D D C B A, then the int8
     models of head_ch and all (calibrated on 4 batches of 8, timed; and on
     4 images) eager against window 8, A B B A; each configuration's
-    counts equal eager's bit for bit, and its
-    device busy share and kernel ms per batch from one profiled pass.
-    ``base_ev``: another version's train/evaluate module (--baseline),
-    whose eager pass joins the bf16 turns as the first and last."""
+    counts equal eager's bit for bit, and its device busy share and kernel
+    ms per batch from one profiled pass. ``base_root``: another version of
+    the port (--baseline), whose eager bf16 pass joins the bf16 turns and
+    whose own int8 models (its modules, the same seeded weights) windowed
+    by 8 join the int8 turns, each as the first and last."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.models.bisenet import build_bisenet
@@ -1350,10 +1505,10 @@ def phase_eval_window(device, card, base_ev=None):
     model = build_bisenet(19, device=device,
                           generator=torch.Generator().manual_seed(0)).eval()
     batches = eval_batches(device)
+    calib = [x for x, _ in batches[:4]]
     n_images = sum(x.shape[0] for x, _ in batches)
     models = {"bf16": model}
     for qfilter in ("head_ch", "all"):
-        calib = [x for x, _ in batches[:4]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         models[f"int8 {qfilter}"], _ = quantize_model(
@@ -1370,57 +1525,66 @@ def phase_eval_window(device, card, base_ev=None):
         log("eval-window", f"calibration + build, {qfilter}: 4 batches of 8 "
             f"{secs8 * 1e3:.1f} ms; 4 batches of 1 (--calib_batches 4 at "
             f"the CLI's --eval_batch_size 1) {secs1 * 1e3:.1f} ms | {card}")
+    base = {}
+    if base_root is not None:
+        base_ev = baseline_module(base_root, "train.evaluate")
+        base_q = baseline_module(base_root, "ops.quantize")
+        base_model = baseline_module(base_root, "models.bisenet").build_bisenet(
+            19, device=device,
+            generator=torch.Generator().manual_seed(0)).eval()
+        base["bf16"] = [("baseline", 0, 900.0, model, base_ev)]
+        for qfilter in ("head_ch", "all"):
+            qm, _ = base_q.quantize_model(
+                base_model, calib, filter_fn=base_q.PRESET_FILTERS[qfilter],
+                amp_dtype=torch.bfloat16)
+            base[f"int8 {qfilter}"] = [("baseline window 8", 8, 900.0, qm,
+                                        base_ev)]
     results = {}
     for name, m in models.items():
-        # (label, window, fetch watchdog's timeout); the watchdog's own
-        # cost is eager with it against eager without it
-        configs = [("eager", 0, 900.0), ("window 8", 8, 900.0)]
+        # (label, window, fetch watchdog's timeout, model, evaluate
+        # module); the watchdog's own cost is eager with it against eager
+        # without it
+        configs = [("eager", 0, 900.0, m, ev), ("window 8", 8, 900.0, m, ev)]
         if name == "bf16":
-            configs[1:1] = [("eager, no watchdog", 0, 0.0)]
-            configs.append(("window 4", 4, 900.0))
-        runs = {label: [] for label, _, _ in configs}
-        graphs = {label: ev.EvalGraphs() for label, _, _ in configs}
-        calls = {label: functools.partial(eval_run, m, batches, device, k,
-                                          graphs[label], fetch_timeout=t)
-                 for label, k, t in configs}
+            configs[1:1] = [("eager, no watchdog", 0, 0.0, m, ev)]
+            configs.append(("window 4", 4, 900.0, m, ev))
+        theirs = base.get(name, [])
+        calls = {label: functools.partial(
+            eval_run, cm, batches, device, k, cev.EvalGraphs(),
+            fetch_timeout=t, ev=cev) for label, k, t, cm, cev in
+            configs + theirs}
+        runs = {label: [] for label in calls}
         for call in calls.values():  # warm-up: builds, taps, captures
             call()
-        order = [label for label, _, _ in configs]
-        order += order[::-1]
-        if base_ev is not None and name == "bf16":
-            base_fn = functools.partial(base_ev.eval_counts, model, batches,
-                                        19, prepare=lambda b: b,
-                                        device=device,
-                                        amp_dtype=torch.bfloat16)
-            base_fn()
-            runs["baseline"] = []
-            order = ["baseline"] + order + ["baseline"]
+        order = [c[0] for c in configs]
+        order = ([c[0] for c in theirs] + order + order[::-1]
+                 + [c[0] for c in theirs])
         ref = None
         for label in order:
-            if label == "baseline":
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                base_fn()
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-            else:
-                secs, counts = calls[label]()
-                ref = ref or counts
-                check(torch.equal(counts[0], ref[0]) and counts[1] == ref[1],
-                      f"{name} {label}: counts differ from eager")
+            secs, counts = calls[label]()
+            ref = ref or counts
+            check(torch.equal(counts[0], ref[0]) and counts[1] == ref[1],
+                  f"{name} {label}: counts differ from {order[0]}'s")
             runs[label].append(n_images / secs)
         busy = {label: eval_busy(call, len(batches))
                 for label, call in calls.items()}
         for label, rate in runs.items():
-            extra = ("" if label == "baseline" else
-                     f", device busy {busy[label][0]:.3f}, kernels "
-                     f"{busy[label][1]:.3f} ms/batch, heaviest "
-                     f"{busy[label][2]}")
             log("eval-window", f"{name}, {label}: mean "
                 f"{sum(rate) / len(rate):.1f} images/s, turns "
-                f"{[round(r, 1) for r in rate]}{extra} | {card}")
+                f"{[round(r, 1) for r in rate]}, device busy "
+                f"{busy[label][0]:.3f}, kernels {busy[label][1]:.3f} "
+                f"ms/batch, heaviest {busy[label][2]} | {card}")
         results[name] = {label: (sum(v) / len(v), busy.get(label))
                          for label, v in runs.items()}
+    for qfilter in ("head_ch", "all"):
+        mine = results[f"int8 {qfilter}"]["window 8"][0]
+        line = (f"int8 {qfilter} window 8: {mine:.1f} images/s, "
+                f"{mine / results['bf16']['window 8'][0]:.3f}x bf16's "
+                f"window 8")
+        if base:
+            parent = results[f"int8 {qfilter}"]["baseline window 8"][0]
+            line += f", {mine / parent:.3f}x the baseline's window 8"
+        log("eval-window", f"{line} | {card}")
     return results
 
 
@@ -3490,12 +3654,16 @@ def compare_baseline(device, card, root):
     and its CE kernels' share of device time; then each of the six
     CatBottlenecks of features[2:8] and their six-launch chain
     (``time_stdc``: bf16, batch 8, device and chain time, beside the eager
-    cuDNN modules); last the unaugmented train and DA steps with their
-    batch preparation, each package's own (``time_steps_against_baseline``)."""
+    cuDNN modules); then the unaugmented train and DA steps with their
+    batch preparation, each package's own (``time_steps_against_baseline``);
+    then the int8 conv of each version at the 24 shapes of the all filter
+    (``time_int8_shapes``); last the eval-window phase with the other
+    version's eager loop and its int8 models windowed."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_stdc as fs
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     base_ua = load_baseline(root, "upsample_argmax")
@@ -3524,7 +3692,10 @@ def compare_baseline(device, card, root):
         "baseline": (base_fs.fold_cat_params, base_fs.fused_cat_bottleneck),
         "kernel": (fs.fold_cat_params, fs.fused_cat_bottleneck)})
     time_steps_against_baseline(device, card, root)
-    phase_eval_window(device, card, baseline_module(root, "train.evaluate"))
+    time_int8_shapes(device, card, {"baseline": load_baseline(root,
+                                                               "int8_conv"),
+                                    "kernel": ic})
+    phase_eval_window(device, card, root)
 
 
 def main(argv=None):

@@ -854,31 +854,80 @@ INT8_CASES = (
     (1, 40, 9, 13, 19, 3, 1, 1),
     (3, 64, 7, 11, 96, 1, 1, 0),
 )
+#: the 24 distinct shapes of the 35 int8 blocks of BiSeNet-STDC813 under
+#: --quantize_filter all at batch 8, 512x1024 (tests/test_torch_int8_conv.py
+#: holds their plans): the stem, features.1, the CatBottlenecks' convs,
+#: the context path's and the heads'
+INT8_ALL_SHAPES = (
+    (8, 3, 512, 1024, 32, 3, 2, 1),
+    (8, 32, 256, 512, 64, 3, 2, 1),
+    (8, 64, 128, 256, 128, 1, 1, 0),
+    (8, 128, 64, 128, 64, 3, 1, 1),
+    (8, 64, 64, 128, 32, 3, 1, 1),
+    (8, 32, 64, 128, 32, 3, 1, 1),
+    (8, 256, 64, 128, 128, 1, 1, 0),
+    (8, 256, 64, 128, 256, 1, 1, 0),
+    (8, 256, 32, 64, 128, 3, 1, 1),
+    (8, 128, 32, 64, 64, 3, 1, 1),
+    (8, 64, 32, 64, 64, 3, 1, 1),
+    (8, 512, 32, 64, 256, 1, 1, 0),
+    (8, 512, 32, 64, 512, 1, 1, 0),
+    (8, 512, 16, 32, 256, 3, 1, 1),
+    (8, 256, 16, 32, 128, 3, 1, 1),
+    (8, 128, 16, 32, 128, 3, 1, 1),
+    (8, 1024, 16, 32, 512, 1, 1, 0),
+    (8, 1024, 1, 1, 128, 1, 1, 0),
+    (8, 1024, 16, 32, 128, 3, 1, 1),
+    (8, 128, 32, 64, 128, 3, 1, 1),
+    (8, 512, 32, 64, 128, 3, 1, 1),
+    (8, 128, 64, 128, 128, 3, 1, 1),
+    (8, 384, 64, 128, 256, 1, 1, 0),
+    (8, 256, 64, 128, 256, 3, 1, 1),
+)
+INT8_DTYPES = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.float32, torch.bfloat16)]
+
+
+def _int8_inputs(device, case, in_dtype, seed, nonfinite=False):
+    """Activations (std 2; with NaN, +-inf and values past the scale at
+    set places when ``nonfinite``), int8 weights, per-channel scales and
+    biases, and the inverse scale (127 over the finite absmax)."""
+    n, cin, h, w, cout, ks, _, _ = case
+    rng = np.random.default_rng(seed)
+    xn = (rng.standard_normal((n, cin, h, w)) * 2).astype(np.float32)
+    scale = np.abs(xn).max()
+    if nonfinite:
+        flat = xn.reshape(-1)
+        flat[::5] = np.nan
+        flat[1::7] = np.inf
+        flat[2::11] = -np.inf
+        flat[3::13] = 4 * scale
+        flat[4::17] = -4 * scale
+    x = torch.from_numpy(xn).to(device, in_dtype)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (cout, cin, ks, ks)).astype(
+        np.int8)).to(device)
+    out_mul = torch.from_numpy(rng.uniform(1e-5, 1e-3, cout).astype(
+        np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(
+        np.float32)).to(device)
+    inv = torch.tensor(127.0 / scale, dtype=torch.float32, device=device)
+    return x, w8, out_mul, bias, inv
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
-                                    (torch.bfloat16, torch.bfloat16),
-                                    (torch.bfloat16, torch.float32),
-                                    (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("case", INT8_CASES)
+@pytest.mark.parametrize("dtypes", INT8_DTYPES)
+@pytest.mark.parametrize("case", INT8_CASES + INT8_ALL_SHAPES)
 def test_int8_conv_equals_plain_version(cuda_device, case, dtypes):
-    """Bit for bit: the int32 sums are exact and the epilogue is a
-    separate fp32 multiply and add in both."""
+    """Bit for bit: the int32 sums are exact (in any order and split of K)
+    and the epilogue is a separate fp32 multiply and add in both."""
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
 
-    n, cin, h, w, cout, ks, stride, pad = case
+    stride, pad = case[6], case[7]
     in_dtype, out_dtype = dtypes
-    rng = np.random.default_rng(cin + cout)
-    x = torch.from_numpy((rng.standard_normal((n, cin, h, w)) * 2).astype(
-        np.float32)).to(cuda_device, in_dtype)
-    w8 = torch.from_numpy(rng.integers(-127, 128, (cout, cin, ks, ks)).astype(
-        np.int8)).to(cuda_device)
-    out_mul = torch.from_numpy(rng.uniform(1e-5, 1e-3, cout).astype(
-        np.float32)).to(cuda_device)
-    bias = torch.from_numpy(rng.standard_normal(cout).astype(
-        np.float32)).to(cuda_device)
-    inv = (127.0 / x.float().abs().max()).reshape(())
+    x, w8, out_mul, bias, inv = _int8_inputs(cuda_device, case, in_dtype,
+                                             case[1] + case[4])
     before = ic.LAUNCHES
     got = ic.int8_conv(x, w8, ic.pack_weights(w8), out_mul, bias, inv,
                        stride, pad, True, out_dtype)
@@ -888,3 +937,82 @@ def test_int8_conv_equals_plain_version(cuda_device, case, dtypes):
     assert ic.LAUNCHES == before + 1
     assert got.dtype == out_dtype and got.shape == want.shape
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("case", [
+    (2, 256, 16, 32, 256, 3, 1, 1),    # NHWC, K split
+    (2, 3, 64, 128, 32, 3, 2, 1),      # im2col (the stem)
+    (1, 40, 9, 13, 19, 3, 1, 1),       # padded channels, ragged everything
+])
+def test_int8_conv_nonfinite_inputs_equal_plain_version(cuda_device, case,
+                                                        relu):
+    """NaN quantizes to 0 and +-inf, like values past the scale, to
+    +-127, in the prologue as in the plain version: bit for bit, with and
+    without ReLU."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    for in_dtype in (torch.float32, torch.bfloat16):
+        x, w8, out_mul, bias, inv = _int8_inputs(cuda_device, case, in_dtype,
+                                                 7, nonfinite=True)
+        assert torch.isnan(x).any() and torch.isinf(x).any()
+        args = (out_mul, bias, inv, case[6], case[7], relu, torch.bfloat16)
+        got = ic.int8_conv(x, w8, ic.pack_weights(w8), *args)
+        want = ic.int8_conv_reference(x, w8, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (8, 256, 64, 128, 256, 3, 1, 1),   # conv_out.conv
+    (8, 1024, 16, 32, 128, 3, 1, 1),   # cp.arm32.conv: K split 8 ways
+    (8, 3, 512, 1024, 32, 3, 2, 1),    # the stem: im2col
+])
+def test_int8_conv_graph_replay_equals_eager(cuda_device, case):
+    """``int8_conv`` captured in a CUDA graph (its scratch from the graph's
+    pool, its split-K counters zeroed by its own prologue on every replay)
+    replays bit-identical to eager calls, also after the input buffer is
+    overwritten; each call launches one prologue and one GEMM kernel, by
+    the profiler's names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    stride, pad = case[6], case[7]
+    x, w8, out_mul, bias, inv = _int8_inputs(cuda_device, case,
+                                             torch.bfloat16, 3)
+    packed = ic.pack_weights(w8)
+    args = (w8, packed, out_mul, bias, inv, stride, pad, True,
+            torch.bfloat16)
+    ic.int8_conv(x, *args)                 # builds, caches the occupancy
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ic.int8_conv(x, *args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    prologue = "im2col" if case[1] < ic.PIECE else "quantize"
+    assert sum(f"int8_conv_{prologue}_kernel" in k for k in names) == 1, names
+    assert sum("int8_conv_gemm_kernel" in k for k in names) == 1, names
+    static_x = x.clone()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        ic.int8_conv(static_x, *args)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ic.LAUNCHES
+    with torch.cuda.graph(graph):
+        static_out = ic.int8_conv(static_x, *args)
+    assert ic.LAUNCHES == before + 1
+    for seed in (3, 4, 5):
+        fresh = _int8_inputs(cuda_device, case, torch.bfloat16, seed)[0]
+        static_x.copy_(fresh)
+        graph.replay()
+        want = ic.int8_conv(fresh, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, want), seed
+    assert torch.equal(want, ic.int8_conv_reference(fresh, w8, *args[2:]))
