@@ -15,11 +15,14 @@ features[2:8] chain with it timed in turns A B B A, and last the
 unaugmented train and DA steps, each with its own package's batch
 preparation, in turns A B B A, then the earlier int8 conv beside this
 checkout's at the 24 shapes of the --quantize_filter all blocks (device
-ms, bit for bit, the sum over a batch's 35 launches), and last the
+ms, bit for bit, the sum over a batch's 35 launches), the host's
+microseconds a call of the earlier wrappers, of this checkout's and of
+its custom ops through the dispatcher (``time_dispatch``), and last the
 earlier version's eager eval loop and its own int8 models (head_ch and
-all) windowed by 8 against this checkout's (the eval-window phase with
-the baseline's passes first and last); nothing else runs
-(``compare_baseline``).
+all), eager and windowed by 8, against this checkout's (the eval-window
+phase with the baseline's passes first and last: eager against eager
+is the cost of calling the kernels through their custom ops); nothing
+else runs (``compare_baseline``).
 
 1. device      -- a CUDA card must be present (exit 1 otherwise, no CPU
                   fallback); prints its name and power limit from nvidia-smi.
@@ -93,15 +96,19 @@ the baseline's passes first and last); nothing else runs
                   (TF32 off), and bf16 autocast predictions against fp32.
 10. slice      -- the port's --domain_shift CLI on a synthetic 4-image
                   Cityscapes val tree at 1024x512 on cuda:0 in bf16 (the
-                  kernel's launch count is reset before and read after), then
-                  fp32 on the card against fp32 on the CPU.
+                  kernel's launch count is reset before and read after),
+                  writing a --export_batches 1,8 bundle (--export_model)
+                  whose metadata names the op; then fp32 on the card
+                  against fp32 on the CPU.
 10b. int8-slice - the slice's main path: the --domain_shift CLI with
                   --quantize_int8 True (filter all) and --eval_scan_window
                   2, bf16, on a 4-image 1024x512 tree (the counts reset
                   before and read after: both kernels, eager and by graph
                   replay); every --quantize_filter with both
                   --quantize_clip values (int8 launches = blocks x
-                  batches); head_ch in fp32 on the card against the CPU.
+                  batches; all with absmax also writes an --export_model
+                  artifact holding both ops); head_ch in fp32 on the
+                  card against the CPU.
 11. train      -- the port's supervised CLI on a synthetic 16 + 4 image tree
                   at 1024x512, batch 8, bf16, 2 epochs of 2 steps, its
                   validations in --eval_scan_window 2 (the kernels' counts
@@ -180,6 +187,28 @@ the baseline's passes first and last); nothing else runs
                   8 with 1, 4 and 8 workers, native and PIL; the
                   --data_cache build and warm read; beside the train step's
                   ms per image.
+20. serve      -- the serving path at 512x1024, seeded weights, bf16 and
+                  int8 all: a symbolic-batch artifact and a 1,8 bundle
+                  exported (utils/export.py; seconds, bytes, the ops in
+                  the saved graph); loaded, its labels against predict at
+                  batch 1, 3 and 8 and the bundle's programs at theirs,
+                  serve.Program's CUDA-graph replay against the eager
+                  call, bit for bit, each batch synchronised and named;
+                  launches through the artifact (1 upsample_argmax a
+                  batch, 35 int8_conv calls an int8 batch), eager and
+                  replayed, and in a fresh process replayed under the
+                  profiler, held equal to the kernels it saw; the
+                  artifact alone, eager against replayed, on 16 device
+                  uint8 batches of 8 (images/s in turns A B B A, busy
+                  share, kernel ms a batch, peak memory); then python -m
+                  ...serve --batch_size 8 --color in a fresh process on
+                  19 2048x1024 PNGs (the bf16 artifact, the int8 bundle):
+                  output names, no module of models/ imported (-X
+                  importtime), labels against predict on the same decoded
+                  frames, batched alike, >= 99.9%, colours the palette's;
+                  first-batch seconds, steady images/s, decode ms. It runs
+                  last: placed before the timing phases, a profile there
+                  once recorded no kernel at all.
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record: each kernel's launches on its
@@ -192,7 +221,10 @@ calls timed by CUDA events, the host path included; the upsample+argmax,
 CE and CatBottleneck kernels add their device time alone and their plain
 version's (``device_ms``, ``plain_device_ms``), the CatBottleneck the
 eager cuDNN modules' too (``eager_ms``, ``eager_device_ms``: no one
-PyTorch call computes a CatBottleneck, so ``library_ms`` stays null). The last line is ``{"ok": true, "device": {...}}``.
+PyTorch call computes a CatBottleneck, so ``library_ms`` stays null);
+the upsample+argmax and int8 conv records add their launches through the
+serve phase's artifacts (``serve_launches``). The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -1330,6 +1362,7 @@ def phase_int8_slice():
     from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
     from dasemanticsegmentationaml_tpu_torch.utils.config import (
         QUANTIZE_FILTERS)
+    from dasemanticsegmentationaml_tpu_torch.utils.export import read_meta
 
     kept = []                     # (x, the other arguments, the output)
     wrapper = quantize.int8_conv
@@ -1391,14 +1424,23 @@ def phase_int8_slice():
               f"({QUANT_BLOCKS['all']})")
         check(not bad, "int8_conv != plain on the main path's blocks")
         del kept[:]
+        art = os.path.join(root, "bisenet_int8_all.pt2")
         for clip in ("absmax", "p999"):
             for qfilter in QUANTIZE_FILTERS:
                 reset_eval_counts(ev)
+                export = (["--export_model", art] if qfilter == "all"
+                          and clip == "absmax" else [])
                 t0 = time.perf_counter()
                 r = cli.main(argv + ["--quantize_filter", qfilter,
                                      "--quantize_clip", clip, "--dtype",
-                                     "bfloat16", "--cuda", "0"])
+                                     "bfloat16", "--cuda", "0"] + export)
                 n = int8_eval_launches(ev)["int8_conv"]
+                if export:
+                    meta = read_meta(art)
+                    log("int8-slice", f"--export_model: {meta}")
+                    check(meta["ops"] == ["int8_conv", "upsample_argmax"]
+                          and meta["batch"] is None, f"the CLI's int8 "
+                          f"artifact: {meta}")
                 log("int8-slice", f"{qfilter:9s} {clip:6s}: precision "
                     f"{r['precision']:.6f} mIoU {r['miou']:.6f}, int8_conv "
                     f"launches {n}, {time.perf_counter() - t0:.2f} s")
@@ -1537,7 +1579,9 @@ def phase_eval_window(device, card, base_root=None):
             qm, _ = base_q.quantize_model(
                 base_model, calib, filter_fn=base_q.PRESET_FILTERS[qfilter],
                 amp_dtype=torch.bfloat16)
-            base[f"int8 {qfilter}"] = [("baseline window 8", 8, 900.0, qm,
+            base[f"int8 {qfilter}"] = [("baseline eager", 0, 900.0, qm,
+                                        base_ev),
+                                       ("baseline window 8", 8, 900.0, qm,
                                         base_ev)]
     results = {}
     for name, m in models.items():
@@ -1585,7 +1629,399 @@ def phase_eval_window(device, card, base_root=None):
             parent = results[f"int8 {qfilter}"]["baseline window 8"][0]
             line += f", {mine / parent:.3f}x the baseline's window 8"
         log("eval-window", f"{line} | {card}")
+    eager_pairs = (("bf16", "baseline"), ("int8 head_ch", "baseline eager"),
+                   ("int8 all", "baseline eager"))
+    for name, theirs in eager_pairs if base else ():
+        mine, parent = results[name]["eager"][0], results[name][theirs][0]
+        log("eval-window", f"{name} eager (the kernels through the custom "
+            f"ops): {mine:.1f} images/s against the baseline's eager "
+            f"{parent:.1f} ({mine / parent:.4f}x) | {card}")
     return results
+
+
+#: the serving artifact's frames (H, W), the batch sizes its labels are
+#: held against ``predict`` at, and the runner's input: 2048x1024 PNGs
+SERVE_HW = (512, 1024)
+SERVE_BATCHES = (1, 3, 8)
+SERVE_IMAGES = 19
+
+
+def served(what, b, fn):
+    """``fn()``, synchronised, with ``what`` and the batch size ``b`` in
+    the error it raises (an asynchronous fault is named by its batch)."""
+    import torch
+
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    except Exception as e:
+        raise RuntimeError(f"{what}, batch {b}: {e}") from e
+
+
+def serve_counts():
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import (
+        upsample_argmax as ua)
+
+    return {"upsample_argmax": ua.LAUNCHES, "int8_conv": ic.LAUNCHES}
+
+
+def label_share(got, want):
+    """The share of equal labels, and where not all are, the count."""
+    same = float((got == want).float().mean())
+    return same, int((got != want).sum())
+
+
+def write_serve_tree(root, n=SERVE_IMAGES, seed=17):
+    """``n`` 2048x1024 RGB PNGs from a numpy seed, the last in a
+    subdirectory with the stem of the first (``sub/s_000.png``)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "sub"), exist_ok=True)
+    paths = [os.path.join(root, f"s_{i:03d}.png") for i in range(n - 1)]
+    paths.append(os.path.join(root, "sub", "s_000.png"))
+    for path in paths:
+        Image.fromarray(rng.integers(0, 255, (1024, 2048, 3),
+                                     dtype=np.uint8)).save(path)
+    return paths
+
+
+def run_serve_cli(artifact, images, output):
+    """``python -m dasemanticsegmentationaml_tpu_torch.serve`` in a fresh
+    process under ``-X importtime``: (its summary line's numbers, the
+    modules it imported)."""
+    import re
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "dasemanticsegmentationaml_tpu_torch.serve", artifact, "--images",
+         images, "--output", output, "--batch_size", "8", "--color"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve exited with {proc.returncode}: "
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    imported = {line.split("|")[-1].strip() for line in
+                proc.stderr.splitlines() if line.startswith("import time:")}
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("served "))
+    nums = {
+        "seconds": float(re.search(r"in ([\d.]+)s", line).group(1)),
+        "first": float(re.search(r"first batch ([\d.]+)s", line).group(1)),
+        "steady": float(re.search(r"then ([\d.]+) img/s", line).group(1)),
+        "decode_ms": float(re.search(r"decode ([\d.]+) ms", line).group(1)),
+        "launches": json.loads(re.search(r"kernel launches (\{.*\})", line)
+                               .group(1).replace("'", '"'))}
+    return line, nums, imported
+
+
+#: ``replays_profiled``'s process: load the artifact, replay it 3 times at
+#: batch 8 by ``serve.Program`` under the profiler; print the counted
+#: launches and the card's kernels by name
+REPLAYS_PROFILED = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from dasemanticsegmentationaml_tpu_torch import serve
+from dasemanticsegmentationaml_tpu_torch.utils.export import load_exported
+device = torch.device("cuda", 0)
+runner = serve.Program(load_exported(sys.argv[1]), device)
+frames = torch.randint(0, 256, (8, 512, 1024, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(0))
+runner(frames)
+before = dict(runner.replayed)
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        runner(frames)
+kernels = {}
+for e in prof.key_averages():
+    if e.device_type == DeviceType.CUDA:
+        kernels[e.key] = kernels.get(e.key, 0) + e.count
+print(json.dumps({"replayed": {k: runner.replayed[k] - before[k]
+                               for k in before}, "kernels": kernels}))
+"""
+
+
+def replays_profiled(artifact):
+    """3 replays of ``artifact`` profiled in a fresh process: (the launches
+    ``serve.Program`` counted, the kernels the profiler saw, as
+    ``kernel_launches_seen``). Late in this long process the profiler has
+    lost kernel records of graph replays (98 to 102 of 105 int8 kernels,
+    in three passes of one run) where a fresh process saw every one."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", REPLAYS_PROFILED, artifact],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the profiled replays exited with "
+                           f"{proc.returncode}: {proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    seen = {(name, kernel): sum(n for key, n in got["kernels"].items()
+                                if any(part in key for part in kernel))
+            for name, kernels in INT8_KERNEL_NAMES.items()
+            for kernel in kernels}
+    return got["replayed"], seen
+
+
+def phase_serve(device, card, window=None):
+    """The serving path at full width: seeded BiSeNet-STDC813 in bf16 and
+    its int8 ``all`` model, each exported (``utils/export.py``) as a
+    symbolic-batch artifact and a ``1,8`` bundle (seconds and bytes; the
+    saved graph holds the ops). Loaded back, the artifact's labels against
+    ``train/evaluate.py::predict`` on the same prepared batch at batch 1, 3
+    and 8 (and each bundle program at its batch), synchronised after each
+    batch; ``serve.Program``'s CUDA-graph replay against the eager call,
+    bit for bit; the launches through the artifact, eager and replayed
+    (1 upsample_argmax a batch, 35 int8_conv calls an int8 batch), and in
+    a fresh process (``replays_profiled``) replayed under the profiler and
+    held equal to the kernels it saw. Then the artifact alone on 16
+    prepared device uint8 batches of 8, eager against replayed in turns A
+    B B A (images/s, device busy share, kernel ms a batch, peak memory;
+    beside the eval-window phase's ``window``); then the runner, ``python
+    -m ...serve --batch_size 8 --color`` in a fresh process on 19
+    2048x1024 PNGs (one in a subdirectory with a colliding stem), for the
+    bf16 artifact and the int8 bundle: the output names, no module of
+    ``models/`` imported, labels against in-process ``predict`` on the
+    same decoded frames (>= 0.999 of pixels: another process may choose
+    other cuDNN algorithms), colours equal to the palette's, and its
+    first-batch seconds, steady images/s and decode ms an image. Returns
+    the launches counted through the artifacts, by kernel."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch import serve
+    from dasemanticsegmentationaml_tpu_torch.data.labels import (
+        train_id_colors)
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        prepare_batch)
+    from dasemanticsegmentationaml_tpu_torch.data.transforms_host import (
+        load_image)
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet)
+    from dasemanticsegmentationaml_tpu_torch.ops.quantize import (
+        PRESET_FILTERS, quantize_model)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import predict
+    from dasemanticsegmentationaml_tpu_torch.utils import export as ex
+    from PIL import Image
+
+    bf16 = torch.bfloat16
+    h, w = SERVE_HW
+    rng = np.random.default_rng(13)
+    frames = [torch.from_numpy(rng.integers(0, 256, (8, h, w, 3),
+                                            dtype=np.uint8)).pin_memory()
+              for _ in range(16)]
+    zeros = torch.zeros((8, h, w), dtype=torch.uint8)
+
+    def prepared(u8):
+        return prepare_batch(u8, zeros[:u8.shape[0]], device=device,
+                             dtype=bf16)[0]
+
+    model = build_bisenet(19, device=device,
+                          generator=torch.Generator().manual_seed(0)).eval()
+    qmodel, _ = quantize_model(model, [prepared(f) for f in frames[:4]],
+                               filter_fn=PRESET_FILTERS["all"],
+                               amp_dtype=bf16)
+    models = {"bf16": (model, ["upsample_argmax"], 0),
+              "int8 all": (qmodel, ["int8_conv", "upsample_argmax"],
+                           QUANT_BLOCKS["all"])}
+    launches = {"upsample_argmax": 0, "int8_conv": 0}
+    dev_frames = [f.to(device) for f in frames]
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        paths = write_serve_tree(images)
+        decoded = np.stack([load_image(p, SERVE_HW, False) for p in paths])
+        for name, (m, ops, blocks) in models.items():
+            tag = name.replace(" ", "_")
+            art = os.path.join(tmp, f"{tag}.pt2")
+            bundle = os.path.join(tmp, f"{tag}_bundle.zip")
+            t0 = time.perf_counter()
+            ex.export_inference(m, h, w, amp_dtype=bf16, device=device,
+                                path=art)
+            secs = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ex.export_inference_bundle(m, h, w, [1, 8], amp_dtype=bf16,
+                                       device=device, path=bundle)
+            secs_b = time.perf_counter() - t0
+            meta, meta_b = ex.read_meta(art), ex.read_meta(bundle)
+            log("serve", f"{name}: exported the symbolic-batch artifact in "
+                f"{secs:.2f} s, {os.path.getsize(art)} bytes, and the 1,8 "
+                f"bundle in {secs_b:.2f} s, {os.path.getsize(bundle)} bytes;"
+                f" {meta} | {card}")
+            check(meta["ops"] == ops and meta_b["ops"] == ops
+                  and meta["device"] == "cuda" and meta["batch"] is None
+                  and meta_b["batches"] == [1, 8],
+                  f"{name}: the artifacts' metadata {meta}, {meta_b}")
+            t0 = time.perf_counter()
+            module = ex.load_exported(art)
+            programs = {b: e.program.module()
+                        for b, e in ex.read_exported_bundle(bundle).items()}
+            log("serve", f"{name}: loaded both in "
+                f"{time.perf_counter() - t0:.2f} s")
+            runner = serve.Program(module, device)
+            with torch.inference_mode():
+                for b in SERVE_BATCHES:
+                    u8 = frames[1][:b]
+                    want = served(f"{name} predict", b, lambda: predict(
+                        m, prepared(u8), True, bf16))
+                    got = served(f"{name} artifact", b,
+                                 lambda: module(u8.to(device)))
+                    same = label_share(got, want)
+                    replay = served(f"{name} graph replay", b,
+                                    lambda: runner(u8))
+                    log("serve", f"{name}, batch {b}: the artifact against "
+                        f"predict {same[0]:.6f} of labels equal ({same[1]} "
+                        f"differ); graph replay equal to the eager call: "
+                        f"{torch.equal(replay, got.cpu())}")
+                    check(same[0] >= 0.999, f"{name} batch {b}: the "
+                          f"artifact agrees with predict on {same[0]}")
+                    check(torch.equal(replay, got.cpu()),
+                          f"{name} batch {b}: replay != eager")
+                    if b in programs:
+                        got_b = served(f"{name} bundle b{b}", b,
+                                       lambda: programs[b](u8.to(device)))
+                        same_b = label_share(got_b, want)
+                        log("serve", f"{name}, bundle program b{b}: "
+                            f"{same_b[0]:.6f} of labels equal to predict")
+                        check(same_b[0] >= 0.999, f"{name} bundle b{b}")
+                # launches: three eager batches of 8, then three replays
+                before = serve_counts()
+                for i in range(3):
+                    served(f"{name} artifact", 8,
+                           lambda: module(dev_frames[i]))
+                eager = {k: v - before[k]
+                         for k, v in serve_counts().items()}
+                replayed = dict(runner.replayed)
+                for i in range(3):
+                    served(f"{name} graph replay", 8,
+                           lambda: runner(frames[i]))
+                replayed = {k: runner.replayed[k] - replayed[k]
+                            for k in replayed}
+            fresh, seen = replays_profiled(art)
+            log("serve", f"{name}: launches through the artifact, 3 eager "
+                f"batches of 8 {eager}, 3 replays {replayed}; in a fresh "
+                f"process, 3 replays counted {fresh}, and the kernels the "
+                f"profiler saw there {seen}")
+            want_n = {"upsample_argmax": 3, "int8_conv": 3 * blocks}
+            check(eager == want_n and replayed == want_n and fresh == want_n,
+                  f"{name}: launches {eager} eager, {replayed} and {fresh} "
+                  f"replayed, expected {want_n}")
+            check(all(n == fresh[k] for (k, _), n in seen.items()),
+                  f"{name}: the replays' counted launches {fresh} are not "
+                  f"the kernels the card ran {seen}")
+            for k in launches:
+                launches[k] += eager[k] + replayed[k]
+            time_artifact(name, module, runner, dev_frames, device, card,
+                          window)
+            out = os.path.join(tmp, f"out_{tag}")
+            # the bf16 artifact, and the int8 model's bundle (its tail of 3
+            # on the b8 program)
+            kind = "artifact" if name == "bf16" else "1,8 bundle"
+            line, nums, imported = run_serve_cli(
+                art if name == "bf16" else bundle, images, out)
+            log("serve", f"{name} runner on the {kind}: {line}")
+            bad = sorted(mod for mod in imported if mod.startswith((
+                "dasemanticsegmentationaml_tpu_torch.models", "jax")))
+            check(not bad, f"the serving process imported {bad}")
+            # 3 batches (8, 8, the tail padded to 8) replayed, and the
+            # forward the warm-up ran before the one capture
+            check(nums["launches"] == {"upsample_argmax": 4,
+                                       "int8_conv": 4 * blocks},
+                  f"the runner's launches {nums['launches']}, expected one "
+                  f"forward a batch and the warm-up's")
+            names = sorted(os.path.relpath(os.path.join(dp, f), out)
+                           for dp, _, fs in os.walk(out) for f in fs)
+            want_names = sorted(
+                [f"s_{i:03d}{s}.png" for i in range(SERVE_IMAGES - 1)
+                 for s in ("_trainIds", "_color")]
+                + [os.path.join("sub", f"s_000{s}.png")
+                   for s in ("_trainIds", "_color")])
+            check(names == want_names, f"the runner wrote {names}")
+            palette = train_id_colors()
+            agree, colours = [], True
+            with torch.inference_mode():
+                for s in range(0, len(paths), 8):
+                    # batched as the runner batches: the tail padded to 8
+                    # (cuDNN may choose another algorithm at batch 3)
+                    chunk = decoded[s:s + 8]
+                    u8 = torch.from_numpy(np.concatenate([chunk, np.zeros(
+                        (8 - len(chunk), *chunk.shape[1:]), np.uint8)]))
+                    want = predict(m, prepared(u8), True, bf16).cpu().numpy()
+                    for path, pred in zip(paths[s:s + 8], want):
+                        rel = os.path.splitext(
+                            os.path.relpath(path, images))[0]
+                        got = np.asarray(Image.open(os.path.join(
+                            out, f"{rel}_trainIds.png")))
+                        agree.append(float((got == pred).mean()))
+                        colour = np.asarray(Image.open(os.path.join(
+                            out, f"{rel}_color.png")).convert("RGB"))
+                        colours &= bool((colour == palette[got]).all())
+            log("serve", f"{name} runner: labels against in-process predict"
+                f" on the same decoded frames: the least share equal "
+                f"{min(agree):.6f}, mean {sum(agree) / len(agree):.6f}; "
+                f"colours equal to the palette: {colours}; first batch "
+                f"{nums['first']:.3f} s, steady {nums['steady']:.1f} "
+                f"images/s, decode {nums['decode_ms']:.1f} ms an image "
+                f"(PIL or the native decoder, one thread) | {card}")
+            check(min(agree) >= 0.999, f"{name}: the runner's labels agree "
+                  f"with predict on {min(agree)}")
+            check(colours, f"{name}: _color.png != palette[_trainIds.png]")
+    return launches
+
+
+def time_artifact(name, module, runner, dev_frames, device, card,
+                  window=None):
+    """The loaded artifact alone on prepared device uint8 batches of 8:
+    the eager call against ``runner``'s graph replay (its batch-8 graph,
+    the slot filled by a device copy), outputs left on the card and one
+    synchronise at the end, in turns A B B A; images/s, device busy share
+    and kernel ms a batch from one profiled pass each, peak memory."""
+    import torch
+
+    slot, _, graph, _ = runner.graphs[8]
+    n_images = 8 * len(dev_frames)
+
+    def eager():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            outs = [module(f) for f in dev_frames]
+        torch.cuda.synchronize()
+        del outs
+        return time.perf_counter() - t0, None
+
+    def replay():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():       # the slot is an inference tensor
+            for f in dev_frames:
+                slot.copy_(f)
+                graph.replay()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, None
+
+    calls = {"eager": eager, "graph replay": replay}
+    rates = {k: [] for k in calls}
+    for k in ("eager", "graph replay", "graph replay", "eager"):
+        rates[k].append(n_images / calls[k]()[0])
+    for k, call in calls.items():
+        torch.cuda.reset_peak_memory_stats(device)
+        busy, kernel_ms, top = eval_busy(call, len(dev_frames))
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        mean = sum(rates[k]) / len(rates[k])
+        line = (f"{name} artifact, {k}, batch 8, 512x1024: {mean:.1f} "
+                f"images/s (turns {[round(r, 1) for r in rates[k]]}), "
+                f"device busy {busy:.3f}, kernels {kernel_ms:.3f} ms a "
+                f"batch, peak memory {peak:.3f} GiB, heaviest {top}")
+        if window is not None:
+            key = "bf16" if name == "bf16" else "int8 all"
+            line += (f"; eval-window phase: eager "
+                     f"{window[key]['eager'][0]:.1f}, window 8 "
+                     f"{window[key]['window 8'][0]:.1f} images/s")
+        log("serve", f"{line} | {card}")
 
 
 def seeded_backbone(device):
@@ -1745,6 +2181,7 @@ def write_cityscapes(root, mode="val", n=4, size=(512, 1024), seed=0):
 
 def phase_slice():
     from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.utils.export import read_meta
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     with tempfile.TemporaryDirectory() as root:
@@ -1752,13 +2189,20 @@ def phase_slice():
         argv = ["--root", root, "--domain_shift", "True",
                 "--crop_height", "512", "--crop_width", "1024",
                 "--eval_batch_size", "2"]
+        art = os.path.join(root, "bisenet_bundle.zip")
         ua.LAUNCHES = 0
         t0 = time.perf_counter()
-        res = cli.main(argv + ["--dtype", "bfloat16", "--cuda", "0"])
+        res = cli.main(argv + ["--dtype", "bfloat16", "--cuda", "0",
+                               "--export_model", art,
+                               "--export_batches", "1,8"])
         secs = time.perf_counter() - t0
         launches = ua.LAUNCHES
+        meta = read_meta(art)
         log("slice", f"bf16 cuda:0 {res} in {secs:.2f} s host time "
-            f"(set-up included); kernel launches {launches}")
+            f"(set-up and the export included); kernel launches "
+            f"{launches}; --export_model --export_batches 1,8: {meta}")
+        check(meta["ops"] == ["upsample_argmax"] and meta["device"] == "cuda"
+              and meta["batches"] == [1, 8], f"the CLI's bundle: {meta}")
         check(math.isfinite(res["miou"]) and 0.0 <= res["miou"] <= 1.0,
               f"bad mIoU {res['miou']}")
         check(launches > 0, "the main path did not launch the kernel")
@@ -3643,6 +4087,68 @@ def time_steps_against_baseline(device, card, root):
             f"{ms['kernel'][1]:.3f} {ms['baseline'][1]:.3f}) | {card}")
 
 
+def time_dispatch(device, card, root, n=2000):
+    """The host's microseconds a call of upsample_argmax and int8_conv at
+    a tiny shape (the launch dominates), under inference mode as eval
+    calls them: the other version's wrapper (a direct ctypes launch),
+    this checkout's wrapper, and this checkout's custom op called through
+    the dispatcher (``torch.ops.dseg.*``, as a loaded artifact calls it),
+    in turns A B C C B A, each a loop of ``n`` calls and one synchronise.
+    The op's row less the wrapper's is the dispatcher's cost a call."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import (
+        upsample_argmax as ua)
+
+    base_ua = load_baseline(root, "upsample_argmax")
+    base_ic = load_baseline(root, "int8_conv")
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn((1, 19, 8, 16), generator=g).to(device, bf16)
+    x = torch.randn((1, 32, 8, 8), generator=g).to(device, bf16)
+    w8 = torch.randint(-127, 128, (32, 32, 3, 3), generator=g,
+                       dtype=torch.int8).to(device)
+    packed = ic.pack_weights(w8)
+    out_mul = torch.full((32,), 1e-3, device=device)
+    bias = torch.zeros(32, device=device)
+    inv = torch.tensor(40.0, device=device)
+    conv = (w8, packed, out_mul, bias, inv, 1, 1)
+    calls = {
+        "upsample_argmax": {
+            "baseline": lambda: base_ua.upsample_argmax(logits, (32, 64)),
+            "wrapper": lambda: ua.upsample_argmax(logits, (32, 64)),
+            "op": lambda: torch.ops.dseg.upsample_argmax(logits, 32, 64)},
+        "int8_conv": {
+            "baseline": lambda: base_ic.int8_conv(x, *conv),
+            "wrapper": lambda: ic.int8_conv(x, *conv),
+            "op": lambda: torch.ops.dseg.int8_conv(x, *conv, True, bf16)}}
+
+    def host_us(fn):
+        with torch.inference_mode():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    for kernel, fns in calls.items():
+        us = {k: [] for k in fns}
+        for k in ("baseline", "wrapper", "op", "op", "wrapper", "baseline"):
+            us[k].append(host_us(fns[k]))
+        mean = {k: sum(v) / len(v) for k, v in us.items()}
+        log("baseline", f"{kernel} host us a call at a tiny shape, "
+            f"inference mode: baseline wrapper {mean['baseline']:.2f} "
+            f"{[round(u, 2) for u in us['baseline']]}, this wrapper "
+            f"{mean['wrapper']:.2f} {[round(u, 2) for u in us['wrapper']]},"
+            f" the custom op through the dispatcher {mean['op']:.2f} "
+            f"{[round(u, 2) for u in us['op']]}: the dispatcher's cost "
+            f"{mean['op'] - mean['wrapper']:.2f} us a call | {card}")
+
+
 def compare_baseline(device, card, root):
     """``--baseline DIR``: the kernels of another version of the port (A,
     ``load_baseline``) against this checkout's (B) on this card, in one
@@ -3657,8 +4163,10 @@ def compare_baseline(device, card, root):
     cuDNN modules); then the unaugmented train and DA steps with their
     batch preparation, each package's own (``time_steps_against_baseline``);
     then the int8 conv of each version at the 24 shapes of the all filter
-    (``time_int8_shapes``); last the eval-window phase with the other
-    version's eager loop and its int8 models windowed."""
+    (``time_int8_shapes``); then the host's cost a call of each on-path
+    kernel's wrapper and of the custom op (``time_dispatch``); last the
+    eval-window phase with the other version's eager loop and its int8
+    models, eager and windowed."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
@@ -3695,6 +4203,7 @@ def compare_baseline(device, card, root):
     time_int8_shapes(device, card, {"baseline": load_baseline(root,
                                                                "int8_conv"),
                                     "kernel": ic})
+    time_dispatch(device, card, root)
     phase_eval_window(device, card, root)
 
 
@@ -3791,11 +4300,14 @@ def main(argv=None):
     phase_resume(device, card)
     phase_da_resume(device, card)
     times = phase_timing(device, model, card)
-    phase_eval_window(device, card)
+    window = phase_eval_window(device, card)
     time_train_prefetch(device, card)
     stdc_times = time_stdc(device, backbone, h, card)
     time_da_step(device, card)
     phase_loader(card, headers, times["train"]["kernel"][0] / 8)
+    # last: after its profiles of graph replays (the card's tracer has lost
+    # kernel records there) a later profile once saw no kernel at all
+    serve_launches = phase_serve(device, card, window)
 
     argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
     ce_shape, ce_hw = CE_MAIN_CASES[0]
@@ -3834,7 +4346,8 @@ def main(argv=None):
                       argmax["plain"],
                       bound_upsample_argmax((2, 19, 128, 64), (1024, 512), 2),
                       device_ms=argmax[("kernel", "device")],
-                      plain_device_ms=argmax[("plain", "device")])
+                      plain_device_ms=argmax[("plain", "device")],
+                      serve_launches=serve_launches["upsample_argmax"])
         ] + [
         kernel_record(f"fused_ce_{part}", CE_SOURCE, CE_REPLACES,
                       train_launches[f"fused_ce_{part}"],
@@ -3865,6 +4378,7 @@ def main(argv=None):
                       int8["library_ms"], device_ms=int8["device_ms"],
                       cudnn_bf16_ms=int8["cudnn_bf16_ms"],
                       cudnn_bf16_device_ms=int8["cudnn_bf16_device_ms"],
+                      serve_launches=serve_launches["int8_conv"],
                       shape=int8["shape"], dtype="bfloat16")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

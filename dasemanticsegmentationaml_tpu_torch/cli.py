@@ -47,14 +47,23 @@ accumulates k mini-steps per optimizer step (supervised;
 (``data/native.py``); when it cannot be built the CLI prints why and
 decodes with PIL, to the same bytes.
 
+``--domain_shift True --export_model PATH`` also writes the serving
+artifact of the evaluated model (int8 when quantized), before the
+certifying eval: a ``torch.export`` program holding the hand kernels as
+custom ops (``utils/export.py``), at the orientation the loader produces,
+with a symbolic batch, or a bundle of the ``--export_batches`` sizes;
+``serve.py`` replays it (JAX cli.py:490-590).
+
 ``--cuda`` picks the device: ``cpu``, or the index ``n`` of ``cuda:n``;
 without CUDA the latter stops with ``SystemExit``, it never drops to the
-CPU. Export and multi-device or multi-process runs stop with
+CPU; an artifact is exported on that device and runs on its type. The
+multi-device exports (``--export_devices > 1``, ``--export_spatial``)
+and multi-device or multi-process runs stop with
 ``SystemExit("...: not ported yet: see ROADMAP.md")``; ``--iter_size > 1``
-with ``--domain_adaptation`` stops with the JAX package's reason. The
-flags that only those paths read, and ``--use_gpu`` (``INERT_FLAGS``),
-are accepted and do nothing; a value other than the default prints a
-note.
+with ``--domain_adaptation`` and ``--export_batches`` with
+``--export_spatial`` stop with the JAX package's reasons. The flags that
+only the unported paths read, and ``--use_gpu`` (``INERT_FLAGS``), are
+accepted and do nothing; a value other than the default prints a note.
 
 Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --root <cityscapes> --cuda 0
@@ -67,7 +76,8 @@ Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
       python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
           --root <cityscapes> --pretrain_path best.pth --cuda 0 \
           [--eval_scan_window 8] [--quantize_int8 True \
-          --quantize_filter head_ch --calib_batches 4]
+          --quantize_filter head_ch --calib_batches 4] \
+          [--export_model bisenet.pt2 [--export_batches 1,8]]
 """
 
 from __future__ import annotations
@@ -93,6 +103,7 @@ from .train.supervised import make_train_step, train
 from .utils import state_io
 from .utils.checkpoint import make_checkpoint_fn
 from .utils.config import build_parser, parse_args
+from .utils.export import export_inference, export_inference_bundle
 from .utils.logging_util import JsonlLogger, Profiler, make_writer
 from .utils.weights import load_pretrain, load_pretrain_discriminator
 
@@ -117,13 +128,12 @@ INERT_FLAGS = {
                   "and they are " + NOT_PORTED,
     "eval_process_shard": "--eval_process_shard: inert; only multi-process "
                           "runs read it, and they are " + NOT_PORTED,
-    "export_batches": "--export_batches: inert; only --export_model reads "
-                      "it, and it is " + NOT_PORTED,
-    "export_spatial": "--export_spatial: inert; only --export_model reads "
-                      "it, and it is " + NOT_PORTED,
-    "export_devices": "--export_devices: inert; only --export_model reads "
-                      "it, and it is " + NOT_PORTED,
 }
+#: JAX cli.py:503-512
+EXPORT_BUNDLE_SPATIAL = (
+    "--export_batches and --export_spatial cannot be combined: the bundle "
+    "route has no spatial-sharded program variant. Export them as two "
+    "artifacts.")
 
 
 def resolve_device(cuda: str) -> torch.device:
@@ -146,13 +156,20 @@ def resolve_device(cuda: str) -> torch.device:
 
 
 def check_ported(args) -> None:
-    """Stop on every flag whose path the port does not have yet, and on
+    """Stop on every flag whose path the port does not have yet, on
     ``--iter_size > 1`` with ``--domain_adaptation`` as the JAX CLI does
-    (gradient accumulation cannot be grafted onto the 4-phase step)."""
+    (gradient accumulation cannot be grafted onto the 4-phase step), and
+    on ``--export_batches`` with ``--export_spatial`` (JAX cli.py:503-512;
+    checked first, so that the combination gets JAX's reason)."""
     if args.domain_adaptation and args.iter_size > 1:
         raise SystemExit(DA_ITER_SIZE)
+    if args.export_batches and args.export_spatial:
+        raise SystemExit(EXPORT_BUNDLE_SPATIAL)
     unported = {
-        "--export_model": args.export_model,
+        "--export_devices > 1 (the sharded artifact)":
+            args.export_devices > 1,
+        "--export_spatial (the height-sharded artifact)":
+            args.export_spatial,
         "multi-process runs": (args.coordinator_address is not None
                                or (args.num_processes or 1) > 1),
         "multi-device runs": ((args.num_devices or 1) > 1
@@ -303,6 +320,37 @@ def fp32_math():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def actual_hw(args):
+    """The (H, W) of the tensors the loader produces (JAX cli.py:153):
+    under ``--faithful_resize`` the reference's transposed ``PIL.resize``
+    makes them ``--crop_width`` tall."""
+    if args.faithful_resize:
+        return args.crop_width, args.crop_height
+    return args.crop_height, args.crop_width
+
+
+def export_model(args, model, amp_dtype, device) -> None:
+    """``--export_model``: the serving artifact of ``model`` (after
+    ``--quantize_int8``, so an int8 model carries the int8 kernel) at the
+    orientation the loader produces, so that it serves what the
+    certifying eval measures; the upsample+argmax kernel by
+    ``--use_fused_eval``; a bundle of concrete batches under
+    ``--export_batches`` (JAX cli.py:490-590)."""
+    h, w = actual_hw(args)
+    kwargs = dict(use_fused_kernel=args.use_fused_eval, amp_dtype=amp_dtype,
+                  device=device, path=args.export_model)
+    if args.export_batches:
+        batches = [int(b) for b in args.export_batches.split(",") if b]
+        export_inference_bundle(model, h, w, batches, **kwargs)
+        kind = f"bundle of batches {sorted(set(batches))}"
+    else:
+        export_inference(model, h, w, **kwargs)
+        kind = "symbolic batch"
+    print(f"exported serving artifact: {args.export_model} "
+          f"({os.path.getsize(args.export_model)} bytes, {device.type}, "
+          f"{kind})")
+
+
 def inert_flag_notes(args):
     """The notes of ``INERT_FLAGS`` given a value other than the default."""
     parser = build_parser()
@@ -424,6 +472,8 @@ def main(argv=None):
                     model, calib,
                     filter_fn=PRESET_FILTERS[args.quantize_filter],
                     clip=args.quantize_clip, amp_dtype=amp_dtype)
+            if args.export_model:
+                export_model(args, eval_model, amp_dtype, device)
             precision, miou = evaluate_fn(eval_model)
             return {"precision": precision, "miou": miou}
         profiler = Profiler(args.profile_dir) if args.profile_dir else None

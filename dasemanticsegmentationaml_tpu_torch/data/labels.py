@@ -83,3 +83,13 @@ def train_id_lut_on(device: torch.device) -> torch.Tensor:
 def remap_train_ids(labels: torch.Tensor) -> torch.Tensor:
     """Raw uint8 ids -> int32 trainIds, one gather on ``labels``' device."""
     return train_id_lut_on(labels.device)[labels.long()]
+
+
+def train_id_colors() -> np.ndarray:
+    """(20, 3) uint8 palette for trainIds 0..18 and the ignore label
+    (black, index 19) (JAX labels.py:103)."""
+    colors = np.zeros((NUM_TRAIN_CLASSES + 1, 3), dtype=np.uint8)
+    for _lid, _name, tid, color, *_rest in CITYSCAPES_LABELS:
+        if tid != IGNORE_LABEL:
+            colors[tid] = color
+    return colors

@@ -17,6 +17,12 @@ exact below 2^53; fp32 is not, 127^2 * 9216 > 2^24), cast to int32, then
 a separate fp32 multiply and add, ReLU and the cast. The kernels compute
 the same operations in the same rounding, and integer sums in any order,
 so the two agree bit for bit.
+
+The custom op ``dseg::int8_conv`` is registered here: the kernels'
+launcher on CUDA, the plain version on the CPU, and a shape function that
+keeps the batch symbolic. The wrapper calls the op while ``torch.export``
+traces, so that a serving artifact (``utils/export.py``) of an int8 model
+carries the kernels; eager calls on a card go to the launcher directly.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from . import OP_NAMESPACE
 from .build import check_launch, current_stream, load_library, sm_count
 
 #: ``int8_conv`` calls that launched the kernels in this process (each
@@ -249,19 +256,38 @@ def int8_conv(x: torch.Tensor, w_int8: torch.Tensor, w_packed: torch.Tensor,
     out_mul + bias`` (fp32, per output channel) and ReLU.
     ``w_packed``: ``pack_weights(w_int8)``.
 
-    A CUDA tensor always goes through the kernels (the prologue, then the
+    While ``torch.export`` traces, this calls the custom op
+    ``dseg::int8_conv``, so that the traced graph (``utils/export.py``)
+    holds the kernels as one node; otherwise it calls the op's CUDA
+    implementation directly: the dispatcher's path to it costs the host
+    about 21 us a call on an H100's host, 35 calls a batch under the
+    ``all`` filter (``chip_smoke.py --baseline``, ``time_dispatch``). A
+    CUDA tensor always goes through the kernels (the prologue, then the
     GEMM, as ``plan`` says): a failed build, load or launch raises. It
     neither synchronises nor copies from the host, and its scratch (the
     quantized input; split K's partial sums and tile counters) comes from
     ``torch.empty`` in the call, so it may be captured in a CUDA graph
     (once its library and occupancy are cached by an earlier call). A CPU
     tensor goes through the plain version."""
-    global LAUNCHES
     out_dtype = out_dtype or x.dtype
+    _check(x, w_int8, out_dtype)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    args = (x, w_int8, w_packed, out_mul, bias, in_inv_scale, stride,
+            padding, relu, out_dtype)
+    if x.device.type == "cuda" and not torch.compiler.is_exporting():
+        return _int8_conv_launch(*args)
+    return _int8_conv_op(*args)
+
+
+def _check(x: torch.Tensor, w_int8: torch.Tensor,
+           out_dtype: torch.dtype) -> None:
+    """Raise on what neither version takes (nothing here reads the batch,
+    which may be symbolic while a program is exported)."""
     if x.dim() != 4 or w_int8.dim() != 4:
         raise ValueError(f"x must be (N, C, H, W) and w (Cout, Cin, k, k), "
                          f"got {tuple(x.shape)}, {tuple(w_int8.shape)}")
-    n, cin, h, w = x.shape
+    cin = x.shape[1]
     cout, wcin, ks, ks2 = w_int8.shape
     if wcin != cin or ks != ks2 or ks not in (1, 3):
         raise ValueError(f"weights {tuple(w_int8.shape)} do not take input "
@@ -272,11 +298,43 @@ def int8_conv(x: torch.Tensor, w_int8: torch.Tensor, w_packed: torch.Tensor,
                         f"{x.dtype} -> {out_dtype}")
     if w_int8.dtype != torch.int8:
         raise TypeError(f"weights must be int8, got {w_int8.dtype}")
-    if x.device.type == "cpu":
-        return int8_conv_reference(x, w_int8, out_mul, bias, in_inv_scale,
-                                   stride, padding, relu, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::int8_conv", mutates_args=(),
+                         device_types="cpu")
+def _int8_conv_op(x: torch.Tensor, w_int8: torch.Tensor,
+                  w_packed: torch.Tensor, out_mul: torch.Tensor,
+                  bias: torch.Tensor, in_inv_scale: torch.Tensor, stride: int,
+                  padding: int, relu: bool,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """``dseg::int8_conv`` on the CPU: the plain version."""
+    return int8_conv_reference(x, w_int8, out_mul, bias, in_inv_scale,
+                               stride, padding, relu, out_dtype)
+
+
+@_int8_conv_op.register_fake
+def _int8_conv_shape(x, w_int8, w_packed, out_mul, bias, in_inv_scale,
+                     stride, padding, relu, out_dtype):
+    n, _, h, w = x.shape
+    cout, _, ks, _ = w_int8.shape
+    out_h = (h + 2 * padding - ks) // stride + 1
+    out_w = (w + 2 * padding - ks) // stride + 1
+    return x.new_empty((n, cout, out_h, out_w), dtype=out_dtype)
+
+
+@_int8_conv_op.register_kernel("cuda")
+def _int8_conv_launch(x: torch.Tensor, w_int8: torch.Tensor,
+                      w_packed: torch.Tensor, out_mul: torch.Tensor,
+                      bias: torch.Tensor, in_inv_scale: torch.Tensor,
+                      stride: int, padding: int, relu: bool,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """``dseg::int8_conv`` on a card: the prologue, then the GEMM. A loaded
+    artifact calls the op directly, so the checks run here again, with
+    the 32-bit index limit, on the concrete batch."""
+    global LAUNCHES
+    _check(x, w_int8, out_dtype)
+    n, cin, h, w = x.shape
+    cout, _, ks, _ = w_int8.shape
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (N, C, H, W)")
     if stride < 1 or padding < 0 or min(

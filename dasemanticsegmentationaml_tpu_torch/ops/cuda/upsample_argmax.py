@@ -12,6 +12,14 @@ for non-finite logits too (the first NaN wins). Both take their taps from
 ``ops/resize.py::_align_corners_taps``, the numbers the JAX package uses;
 the kernel's column segments come from ``ops/resize.py::tap_ranges``.
 
+The custom op ``dseg::upsample_argmax(Tensor logits, int out_h, int
+out_w) -> Tensor`` is registered here: the kernel's launcher on CUDA, the
+plain version on the CPU, and a shape function that keeps the batch
+symbolic. The wrapper calls the op while ``torch.export`` traces, which
+keeps it as one node, so a serving artifact (``utils/export.py``)
+carries the kernel, and a process that loads one imports this module and
+nothing of the model; eager calls on a card go to the launcher directly.
+
 Eval inference (reference train.py:36-38): the main head's stride-8
 logits, upsampled to the input size (model_stages.py:240), then the class
 argmax (utils.py:120-122).
@@ -26,6 +34,7 @@ from typing import Tuple
 import torch
 
 from ..resize import ranges_on, taps_on, upsample_two_tap
+from . import OP_NAMESPACE
 from .build import check_launch, current_stream, load_library, sm_count
 
 #: kernel launches made by ``upsample_argmax`` in this process; a run sets
@@ -100,24 +109,61 @@ def upsample_argmax(logits: torch.Tensor,
     """(B, C, h, w) contiguous fp32 or bf16 logits -> (B, H, W) int32
     argmax of their align_corners bilinear upsample to ``out_hw``.
 
-    A CUDA tensor always goes through the kernel: a failed build, load or
-    launch raises. A CPU tensor goes through the plain version."""
-    global LAUNCHES
+    While ``torch.export`` traces, this calls the custom op
+    ``dseg::upsample_argmax``, so that the traced graph
+    (``utils/export.py``) holds the kernel as one node; otherwise it calls
+    the op's CUDA implementation directly: the dispatcher's path to it
+    costs the host about 8 us a call on an H100's host (``chip_smoke.py
+    --baseline``, ``time_dispatch``). A CUDA tensor always goes through
+    the kernel: a failed build, load or launch raises. A CPU tensor goes
+    through the plain version."""
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    _check(logits, out_h, out_w)
+    if logits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {logits.device}")
+    if logits.device.type == "cuda" and not torch.compiler.is_exporting():
+        return _upsample_argmax_launch(logits, out_h, out_w)
+    return _upsample_argmax_op(logits, out_h, out_w)
+
+
+def _check(logits: torch.Tensor, out_h: int, out_w: int) -> None:
+    """Raise on what neither version takes (nothing here reads the batch,
+    which may be symbolic while a program is exported)."""
     if logits.dim() != 4:
         raise ValueError(f"logits must be (B, C, h, w), got {tuple(logits.shape)}")
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"logits must be float32 or bfloat16, got {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("logits must be contiguous (B, C, h, w)")
-    out_h, out_w = int(out_hw[0]), int(out_hw[1])
-    b, c, h, w = logits.shape
+    _, c, h, w = logits.shape
     if min(out_h, out_w, c, h, w) < 1:
         raise ValueError(f"empty shape: logits {tuple(logits.shape)} -> "
                          f"{(out_h, out_w)}")
-    if logits.device.type == "cpu":
-        return upsample_argmax_reference(logits, (out_h, out_w))
-    if logits.device.type != "cuda":
-        raise ValueError(f"unsupported device {logits.device}")
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::upsample_argmax",
+                         mutates_args=(), device_types="cpu")
+def _upsample_argmax_op(logits: torch.Tensor, out_h: int,
+                        out_w: int) -> torch.Tensor:
+    """``dseg::upsample_argmax`` on the CPU: the plain version."""
+    return upsample_argmax_reference(logits, (out_h, out_w))
+
+
+@_upsample_argmax_op.register_fake
+def _upsample_argmax_shape(logits, out_h, out_w):
+    return logits.new_empty((logits.shape[0], out_h, out_w),
+                            dtype=torch.int32)
+
+
+@_upsample_argmax_op.register_kernel("cuda")
+def _upsample_argmax_launch(logits: torch.Tensor, out_h: int,
+                            out_w: int) -> torch.Tensor:
+    """``dseg::upsample_argmax`` on a card: one launch of the kernel. A
+    loaded artifact calls the op directly, so the checks run here again,
+    with the 32-bit index limit, on the concrete batch."""
+    global LAUNCHES
+    _check(logits, out_h, out_w)
+    b, c, h, w = logits.shape
     if max(b * c * h * w, b * out_h * out_w, 4 * w) > _INT_MAX:
         raise ValueError("the shape exceeds the kernel's 32-bit indices: "
                          f"{tuple(logits.shape)} -> {(out_h, out_w)}")

@@ -9,7 +9,8 @@ default, type and choices against the JAX parser. Boolean flags take
 ``--domain_shift False`` truthy, train.py:408-437).
 
 The port runs supervised training, adversarial domain adaptation and
-``--domain_shift`` evaluation (with ``--eval_scan_window`` and int8 PTQ);
+``--domain_shift`` evaluation (with ``--eval_scan_window``, int8 PTQ and
+``--export_model``);
 the CLI stops with ``SystemExit`` on the flags of paths still to be
 ported, and the flags only those paths read are inert
 (``cli.py::INERT_FLAGS``).
@@ -145,10 +146,14 @@ _FLAGS = (
     ("--quantize_clip", str, "absmax", ("absmax", "p999"),
      "--quantize_int8: activation scale from the absmax or the 99.9th "
      "percentile"),
-    ("--export_model", str, None, None, _TODO),
-    ("--export_batches", str, None, None, _TODO),
-    ("--export_spatial", str2bool, False, None, _TODO),
-    ("--export_devices", int, 1, None, _TODO),
+    ("--export_model", str, None, None,
+     "--domain_shift: also write the serving artifact (torch.export, "
+     "symbolic batch; utils/export.py) here"),
+    ("--export_batches", str, None, None,
+     "comma-separated batch sizes: write --export_model as a bundle of "
+     "one program per size"),
+    ("--export_spatial", str2bool, False, None, "True: " + _TODO),
+    ("--export_devices", int, 1, None, "more than 1: " + _TODO),
     ("--resume", str, None, None,
      "continue from <save_model_path>/state (model, optimizer, "
      "accumulation, epoch)"),

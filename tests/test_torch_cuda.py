@@ -1016,3 +1016,137 @@ def test_int8_conv_graph_replay_equals_eager(cuda_device, case):
         torch.cuda.synchronize()
         assert torch.equal(static_out, want), seed
     assert torch.equal(want, ic.int8_conv_reference(fresh, w8, *args[2:]))
+
+
+def _serving_models(device, h=64, w=128):
+    """The seeded bf16 model and its int8 ``all`` model, and uint8 frames
+    (pinned) of 3 at ``h`` x ``w``."""
+    from dasemanticsegmentationaml_tpu_torch.ops.quantize import (
+        PRESET_FILTERS, quantize_model)
+
+    model = _seeded_eval_model(device)
+    batches = _device_batches(device, 2, h=h, w=w)
+    qmodel, _ = quantize_model(model, [x for x, _ in batches[:2]],
+                               filter_fn=PRESET_FILTERS["all"],
+                               amp_dtype=torch.bfloat16)
+    frames, _ = _pinned_batch(7, n=3, h=h, w=w)
+    return {"bf16": model, "int8 all": qmodel}, frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", "int8 all"])
+def test_artifact_equals_predict(cuda_device, tmp_path, name):
+    """The loaded symbolic-batch artifact against ``predict`` on the same
+    prepared batch, at batch 1 and 3, bit for bit; its saved graph holds
+    the ops; a bundle's programs likewise at their batches."""
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        prepare_batch)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import predict
+    from dasemanticsegmentationaml_tpu_torch.utils import export as ex
+
+    models, frames = _serving_models(cuda_device)
+    model = models[name]
+    path, bundle = str(tmp_path / "m.pt2"), str(tmp_path / "b.zip")
+    ex.export_inference(model, 64, 128, amp_dtype=torch.bfloat16, path=path)
+    ex.export_inference_bundle(model, 64, 128, [1, 3],
+                               amp_dtype=torch.bfloat16, path=bundle)
+    meta = ex.read_meta(path)
+    assert meta["device"] == "cuda" and meta["dtype"] == "bfloat16"
+    assert meta["ops"] == (["upsample_argmax"] if name == "bf16"
+                           else ["int8_conv", "upsample_argmax"])
+    module = ex.load_exported(path)
+    programs = ex.read_exported_bundle(bundle)
+    with torch.inference_mode():
+        for b in (1, 3):
+            x, _ = prepare_batch(frames[:b], torch.zeros((b, 64, 128),
+                                                         dtype=torch.uint8),
+                                 device=cuda_device, dtype=torch.bfloat16)
+            want = predict(model, x, True, torch.bfloat16)
+            u8 = frames[:b].to(cuda_device)
+            assert torch.equal(module(u8), want)
+            assert torch.equal(programs[b].program.module()(u8), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bf16", "int8 all"])
+def test_artifact_graph_replay_equals_eager(cuda_device, tmp_path, name):
+    """``serve.Program`` replays one CUDA graph per batch size (1, 3) equal
+    to the eager call of the loaded program, bit for bit, and again after
+    the input changed."""
+    from dasemanticsegmentationaml_tpu_torch import serve
+    from dasemanticsegmentationaml_tpu_torch.utils import export as ex
+
+    models, frames = _serving_models(cuda_device)
+    path = str(tmp_path / "m.pt2")
+    ex.export_inference(models[name], 64, 128, amp_dtype=torch.bfloat16,
+                        path=path)
+    module = ex.load_exported(path)
+    runner = serve.Program(module, cuda_device)
+    with torch.inference_mode():
+        for frames_now in (frames, frames.flip(0).contiguous()):
+            for b in (1, 3):
+                got = runner(frames_now[:b])
+                want = module(frames_now[:b].to(cuda_device)).cpu()
+                assert torch.equal(got, want)
+    assert sorted(runner.graphs) == [1, 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,blocks", [("bf16", 0), ("int8 all", 35)])
+def test_artifact_launch_counts(cuda_device, tmp_path, name, blocks):
+    """Through a loaded artifact each batch launches upsample_argmax once
+    and the int8 kernels once a quantized block: eagerly by the wrappers'
+    counters, and by ``serve.Program``'s replay count."""
+    from dasemanticsegmentationaml_tpu_torch import serve
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.utils import export as ex
+
+    models, frames = _serving_models(cuda_device)
+    path = str(tmp_path / "m.pt2")
+    ex.export_inference(models[name], 64, 128, amp_dtype=torch.bfloat16,
+                        path=path)
+    module = ex.load_exported(path)
+    u8 = frames.to(cuda_device)
+    before = (ua.LAUNCHES, ic.LAUNCHES)
+    with torch.inference_mode():
+        for _ in range(2):
+            module(u8)
+    assert (ua.LAUNCHES - before[0], ic.LAUNCHES - before[1]) == (
+        2, 2 * blocks)
+    runner = serve.Program(module, cuda_device)
+    runner(frames)
+    replayed = dict(runner.replayed)
+    runner(frames)
+    assert runner.captured == {"upsample_argmax": 1, "int8_conv": blocks}
+    assert {k: runner.replayed[k] - replayed[k] for k in replayed} == {
+        "upsample_argmax": 1, "int8_conv": blocks}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_equal_plain_versions(cuda_device, dtype):
+    """``dseg::upsample_argmax`` and ``dseg::int8_conv`` called as ops on
+    the card equal their plain versions bit for bit, and count their
+    launches."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    x = _logits(cuda_device, (3, 19, 16, 32), 5, "normal", dtype)
+    n = ua.LAUNCHES
+    got = torch.ops.dseg.upsample_argmax(x, 64, 128)
+    assert ua.LAUNCHES == n + 1
+    assert torch.equal(got, ua.upsample_argmax_reference(x, (64, 128)))
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn((3, 32, 16, 24), generator=g).to(cuda_device, dtype)
+    w8 = torch.randint(-127, 128, (48, 32, 3, 3), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    out_mul = (torch.rand(48, generator=g) * 1e-3).to(cuda_device)
+    bias = torch.randn(48, generator=g).to(cuda_device)
+    inv = torch.tensor(40.0, device=cuda_device)
+    n = ic.LAUNCHES
+    got = torch.ops.dseg.int8_conv(a, w8, ic.pack_weights(w8), out_mul, bias,
+                                   inv, 1, 1, True, dtype)
+    torch.cuda.synchronize()
+    assert ic.LAUNCHES == n + 1
+    assert torch.equal(got, ic.int8_conv_reference(a, w8, out_mul, bias, inv,
+                                                   1, 1, True, dtype))

@@ -235,12 +235,14 @@ def test_domain_shift_cli_matches_jax(tmp_path, dataset):
     ["--domain_adaptation", "True", "--iter_size", "2"],
     # int8 is ported; the multi-device stop stays
     ["--quantize_int8", "True", "--spatial_devices", "2"],
-    ["--export_model", "model.bin"],
     ["--num_processes", "2"],
     ["--num_devices", "2"],
     # the augmentation and profile flags are ported; the stops stay
     ["--aug_type", "H-RP", "--host_augment", "True", "--profile_dir",
-     "runs/trace", "--export_model", "model.bin"],
+     "runs/trace", "--export_devices", "2"],
+    # --export_model is ported; the multi-device exports stop
+    ["--export_model", "m.pt2", "--export_spatial", "True",
+     "--export_devices", "2"],
 ])
 def test_cli_stops_on_unported_paths(flags):
     argv = ["--domain_shift", "True", "--cuda", "cpu"] + flags

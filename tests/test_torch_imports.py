@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
         "train.supervised", "utils.checkpoint", "utils.logging_util",
         "utils.tb_writer", "utils.state_io", "utils.label_tools",
         "data.native", "data.cache", "data.transforms_host",
-        "ops.quantize", "ops.cuda.int8_conv", "train.evaluate")
+        "ops.quantize", "ops.cuda.int8_conv", "train.evaluate",
+        "utils.export", "serve")
     } <= set(modules)
     code = (
         "import importlib, sys\n"
@@ -85,3 +86,31 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               env=dict(os.environ, PYTHONPATH=""))
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_port_serving_process_imports_no_model_code(tmp_path):
+    """The serving host's claim (utils/export.py): a process that imports
+    ``serve`` and loads an artifact, on the CPU here, imports nothing of
+    ``models/`` (nor of JAX)."""
+    from dasemanticsegmentationaml_tpu_torch.models import BiSeNet
+    from dasemanticsegmentationaml_tpu_torch.utils.export import (
+        export_inference)
+
+    path = str(tmp_path / "m.pt2")
+    export_inference(BiSeNet(19).eval(), 32, 64, batch=1, path=path)
+    code = (
+        "import sys, torch\n"
+        "from dasemanticsegmentationaml_tpu_torch import serve\n"
+        "from dasemanticsegmentationaml_tpu_torch.utils.export import "
+        "load_exported\n"
+        f"out = load_exported({path!r})(torch.zeros((1, 32, 64, 3), "
+        "dtype=torch.uint8))\n"
+        "assert out.shape == (1, 32, 64), out.shape\n"
+        "bad = [m for m in sys.modules if m.startswith("
+        "'dasemanticsegmentationaml_tpu_torch.models') or m.split('.')[0] "
+        "in ('jax', 'dasemanticsegmentationaml_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
