@@ -207,8 +207,27 @@ else runs (``compare_baseline``).
                   importtime), labels against predict on the same decoded
                   frames, batched alike, >= 99.9%, colours the palette's;
                   first-batch seconds, steady images/s, decode ms. It runs
-                  last: placed before the timing phases, a profile there
-                  once recorded no kernel at all.
+                  after the timing phases: placed before them, a profile
+                  there once recorded no kernel at all.
+
+21. parallel   -- data parallelism across ranks (parallel/), after the
+                  profiled phases (its parent profiles nothing): two gloo
+                  ranks share cuda:0 (NCCL refuses two ranks on one card),
+                  each on 4 rows of a global batch of 8 at 1024x512, fp32,
+                  TF32 off: one sharded train step with --sync_bn True and
+                  False and one DA step (sync: DW+BN D; per replica: FC D),
+                  each held against one process on the card (the plain
+                  step on the global batch; per replica, a model copy a
+                  half with its gradients averaged), each rank's CE
+                  launches by its counters and its profile (3 + 3 a train
+                  step, 2 + 2 a DA step), the ranks' parameters equal;
+                  sharded eval: two ranks' int64 counts over 8 + 8 of 16
+                  prepared bf16 batches equal one process's over all 16;
+                  then at world 1 over NCCL a sync-BN train step against
+                  the step without a group, allreduce_counts, and the
+                  port's sync BN timed against nn.BatchNorm2d,
+                  torch.nn.SyncBatchNorm and the library's sync function;
+                  the step ms of each mode beside the card.
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record: each kernel's launches on its
@@ -223,7 +242,9 @@ version's (``device_ms``, ``plain_device_ms``), the CatBottleneck the
 eager cuDNN modules' too (``eager_ms``, ``eager_device_ms``: no one
 PyTorch call computes a CatBottleneck, so ``library_ms`` stays null);
 the upsample+argmax and int8 conv records add their launches through the
-serve phase's artifacts (``serve_launches``). The last line is
+serve phase's artifacts (``serve_launches``), the upsample+argmax and CE
+records their launches in the parallel phase's ranks
+(``parallel_launches``). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1461,20 +1482,24 @@ def phase_int8_slice():
     return launches
 
 
-def eval_batches(device, n=16, batch=8, seed=11):
+def eval_batches(device, n=16, batch=8, seed=11, keep=None):
     """``n`` prepared bf16 batches of ``batch`` at 512x1024 on ``device``,
-    labels with the ignore label."""
+    labels with the ignore label; ``keep``: the indices of the batches
+    prepared (every one drawn, so that each is the same)."""
     import torch
 
     from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
 
     rng = np.random.default_rng(seed)
     out = []
-    for _ in range(n):
+    for i in range(n):
         images = torch.from_numpy(rng.integers(
-            0, 256, (batch, 512, 1024, 3), dtype=np.uint8)).pin_memory()
+            0, 256, (batch, 512, 1024, 3), dtype=np.uint8))
         labels = torch.from_numpy(rng.integers(
-            0, 20, (batch, 512, 1024), dtype=np.uint8)).pin_memory()
+            0, 20, (batch, 512, 1024), dtype=np.uint8))
+        if keep is not None and i not in keep:
+            continue
+        images, labels = images.pin_memory(), labels.pin_memory()
         labels[labels == 19] = 255
         out.append(prepare_batch(images, labels, device=device,
                                  dtype=torch.bfloat16))
@@ -4207,6 +4232,566 @@ def compare_baseline(device, card, root):
     phase_eval_window(device, card, root)
 
 
+#: the parallel phase's global batch (4 rows a rank at world 2), fp32
+PARALLEL_SHAPE = (8, 3, 1024, 512)
+#: seconds the parallel phase's rank processes may take
+PARALLEL_TIMEOUT = 300
+#: the BN input the parallel phase times sync BN at: the widest BN input
+#: of BiSeNet's stem at batch 8, 1024x512 (ConvX 32 -> 64, stride 4)
+BN_TIMED = (8, 64, 256, 128)
+
+
+def parallel_inputs(seed=21):
+    """The global batch: images, labels (rank 1's rows 40% ignore, rank
+    0's 5%, so the ranks hold unequal valid counts) and target images."""
+    rng = np.random.default_rng(seed)
+    b, _, h, w = PARALLEL_SHAPE
+    x = rng.standard_normal(PARALLEL_SHAPE).astype(np.float32)
+    frac = np.repeat([0.05, 0.40], b // 2)[:, None, None]
+    y = np.where(rng.random((b, h, w)) < frac, 255,
+                 rng.integers(0, 19, (b, h, w))).astype(np.int32)
+    xt = rng.standard_normal(PARALLEL_SHAPE).astype(np.float32)
+    return x, y, xt
+
+
+def seeded_g(device):
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet)
+
+    return build_bisenet(19, device="cpu", generator=torch.Generator(
+        ).manual_seed(0)).to(device).train()
+
+
+def seeded_d(device, kind):
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.models.discriminator import (
+        build_discriminator)
+
+    return build_discriminator(19, *kind, generator=torch.Generator(
+        ).manual_seed(2)).to(device).train()
+
+
+def optimizers(g, d=None):
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.train.optim import make_optimizer
+
+    if d is None:
+        return make_optimizer("sgd", trainable_parameters(g), 0.01,
+                              momentum=0.9, weight_decay=1e-4)
+    return (make_optimizer("sgd", trainable_parameters(g), 0.01,
+                           momentum=0.9, weight_decay=5e-4),
+            make_optimizer("adam", d.parameters(), 1e-3, betas=(0.9, 0.99)))
+
+
+def cpu_state(module):
+    """The state dict on the CPU in fp32 (a float sum of each parameter
+    stands for it where ``sums``)."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in module.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def param_sums(module):
+    return {k: float(v.detach().double().sum())
+            for k, v in module.named_parameters()}
+
+
+def profiled(fn):
+    """(fn(), the profile) with the card's kernels recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def ce_launches():
+    """The CE kernels' counters (``ce_counts`` without upsample_argmax)."""
+    counts = ce_counts()
+    return {k: counts[k] for k in ("fused_ce_fwd", "fused_ce_bwd")}
+
+
+def ce_seen(prof):
+    seen = kernel_launches_seen(prof, {"fused_ce_fwd": (("ce_fwd_band",),),
+                                       "fused_ce_bwd": (("ce_bwd_band",),)})
+    return {name: n for (name, _), n in seen.items()}
+
+
+def parallel_rank(rank, world, init, out):
+    """One of two gloo ranks sharing cuda:0 (parallel phase): the sharded
+    train and DA steps on its rows, each under the profiler with the CE
+    counters reset before and read after, then timed; and its half of the
+    eval batches through eval_counts and allreduce_counts."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import (
+        upsample_argmax as ua)
+    from dasemanticsegmentationaml_tpu_torch.parallel.distributed import (
+        allreduce_counts, destroy, initialize)
+    from dasemanticsegmentationaml_tpu_torch.parallel.mesh import (
+        make_sharded_da_step, make_sharded_train_step)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import (
+        eval_counts)
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    initialize(init, world, rank, backend="gloo", device=device)
+    try:
+        x, y, xt = parallel_inputs()
+        rows = slice(rank * 4, rank * 4 + 4)
+        xs, ys, xts = (torch.from_numpy(a[rows]).to(device)
+                       for a in (x, y, xt))
+        res = {}
+        with fp32_math():
+            for mode, sync in (("sync", True), ("replica", False)):
+                g = seeded_g(device)
+                opt = optimizers(g)
+                step = make_sharded_train_step(g, opt, num_classes=19,
+                                               sync_bn=sync)
+                reset_ce_counts()
+                loss, prof = profiled(lambda: step(xs, ys))
+                res[("train", mode)] = dict(
+                    loss=float(loss), state=cpu_state(g),
+                    sums=param_sums(g), launches=ce_launches(),
+                    seen=ce_seen(prof),
+                    ms=cuda_ms(lambda: step(xs, ys), 3, warmup=1))
+            for mode, sync, kind in (("sync", True, (True, True)),
+                                     ("replica", False, (False, False))):
+                g, d = seeded_g(device), seeded_d(device, kind)
+                g_opt, d_opt = optimizers(g, d)
+                step = make_sharded_da_step(g, d, g_opt, d_opt,
+                                            num_classes=19, lambda_adv=1e-3,
+                                            sync_bn=sync)
+                reset_ce_counts()
+                m, prof = profiled(lambda: step(xs, ys, xts))
+                res[("da", mode)] = dict(
+                    metrics={k: float(v) for k, v in m.items()},
+                    g=cpu_state(g), d=cpu_state(d), sums=param_sums(g),
+                    launches=ce_launches(), seen=ce_seen(prof),
+                    ms=cuda_ms(lambda: step(xs, ys, xts), 2, warmup=1))
+        model = seeded_g(device).eval()
+        batches = eval_batches(device, keep=range(rank, 16, world))
+        ua.LAUNCHES = 0
+        hist, correct, total = eval_counts(model, batches, 19,
+                                           prepare=lambda b: b,
+                                           device=device,
+                                           amp_dtype=torch.bfloat16)
+        hist, correct, total = allreduce_counts(hist, correct, total)
+        res["eval"] = dict(hist=hist.cpu(), correct=int(correct),
+                           total=total, launches=ua.LAUNCHES,
+                           batches=len(batches))
+        torch.save(res, out)
+    finally:
+        destroy()
+
+
+def nccl_rank(init, out):
+    """World 1 over NCCL (parallel phase): the sync-BN train step through
+    the communicator beside the step without a group, allreduce_counts,
+    and the BN timings: the port's sync BN, nn.BatchNorm2d,
+    torch.nn.SyncBatchNorm (the module; at world 1 it takes the plain
+    path) and the library's sync function (the collective path)."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn as nn
+    from torch.nn.modules._functions import SyncBatchNorm as LibrarySync
+
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+    from dasemanticsegmentationaml_tpu_torch.parallel.distributed import (
+        allreduce_counts)
+    from dasemanticsegmentationaml_tpu_torch.parallel.mesh import (
+        make_sharded_train_step)
+    from dasemanticsegmentationaml_tpu_torch.parallel.sync_bn import (
+        convert_sync_batchnorm)
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=init, world_size=1, rank=0,
+                            device_id=device)
+    try:
+        x, y, _ = parallel_inputs()
+        xs, ys = (torch.from_numpy(a[:4]).to(device) for a in (x, y))
+        res = {}
+        with fp32_math():
+            for name in ("nccl", "plain"):
+                g = seeded_g(device)
+                opt = optimizers(g)
+                step = (make_sharded_train_step(g, opt, num_classes=19)
+                        if name == "nccl" else make_train_step(g, opt))
+                loss = float(step(xs, ys))
+                res[name] = dict(loss=loss, state=cpu_state(g))
+        hist = torch.arange(19 * 19, device=device,
+                            dtype=torch.int64).reshape(19, 19) + 2**33
+        correct = torch.tensor(2**35 + 5, device=device)
+        h, c, t = allreduce_counts(hist, correct, 2**36 + 1)
+        res["counts"] = (torch.equal(h, hist), int(c) == 2**35 + 5,
+                         t == 2**36 + 1)
+        times = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            xb = torch.randn(BN_TIMED, device=device, dtype=dtype,
+                             requires_grad=True)
+            dy = torch.randn_like(xb)
+            port = convert_sync_batchnorm(nn.Sequential(nn.BatchNorm2d(
+                BN_TIMED[1]))).to(device).train()
+            plain = nn.BatchNorm2d(BN_TIMED[1]).to(device).train()
+            module = nn.SyncBatchNorm(BN_TIMED[1]).to(device).train()
+            lib = nn.BatchNorm2d(BN_TIMED[1]).to(device)
+
+            def library(m=lib):
+                return LibrarySync.apply(
+                    xb, m.weight, m.bias, m.running_mean, m.running_var,
+                    m.eps, m.momentum, dist.group.WORLD, 1)
+
+            for name, fn in (("port", port), ("nn.BatchNorm2d", plain),
+                             ("torch.nn.SyncBatchNorm", module),
+                             ("library sync function", library)):
+                times[(name, str(dtype).split(".")[1])] = cuda_ms(
+                    lambda f=fn: f(xb).backward(dy) if f is not library
+                    else f().backward(dy), 20)
+        res["bn_ms"] = times
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_parallel(target, args_of, n):
+    """``n`` fresh processes running ``target(*args_of(i, store, out_i))``;
+    waits for them under PARALLEL_TIMEOUT and returns their saved
+    results. A process that fails, or outlives the timeout (it is killed),
+    fails the phase."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = "file://" + os.path.join(tmp, "store")
+        outs = [os.path.join(tmp, f"out{i}.pt") for i in range(n)]
+        procs = [ctx.Process(target=target, args=args_of(i, store, outs[i]))
+                 for i in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(not hung, f"processes {hung} still running after "
+              f"{PARALLEL_TIMEOUT} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * n, f"exit codes {codes}")
+        return [torch.load(o, weights_only=False) for o in outs]
+
+
+def held_to(ours, ref, init, what, *, g_tol=0.02, rs_tol=0.02,
+            leaf_tol=0.1, rs_global=None, skip=()):
+    """``ours`` against ``ref`` after one step from ``init`` (fp32 state
+    dicts on the CPU), relative to ``ref``'s update (test_train_
+    equivalence.py:79-147): the parameters' global l2 within ``g_tol``,
+    each within ``leaf_tol`` (None: not held), each running statistic
+    within ``rs_tol`` (their global l2 within ``rs_global``), the leaves
+    ``ref`` did not move equal. Returns the figures logged."""
+    sq = [0.0, 0.0]
+    rs = [0.0, 0.0]
+    worst = {"leaf": (0.0, ""), "running": (0.0, "")}
+    for key, base in init.items():
+        if key in skip:
+            continue
+        base = base.double()
+        want, got = ref[key].double(), ours[key].double()
+        upd = float((want - base).abs().max())
+        if upd < 1e-12:
+            check(torch_equal(got, base), f"{what}: {key} moved")
+            continue
+        err = float((got - want).abs().max()) / upd
+        if key.endswith(("running_mean", "running_var")):
+            worst["running"] = max(worst["running"], (err, key))
+            check(err < rs_tol, f"{what}: running stat {key} {err:.4f}")
+            rs[0] += float(((got - want) ** 2).sum())
+            rs[1] += float(((want - base) ** 2).sum())
+            continue
+        sq[0] += float(((got - want) ** 2).sum())
+        sq[1] += float(((want - base) ** 2).sum())
+        worst["leaf"] = max(worst["leaf"], (err, key))
+        if leaf_tol is not None:
+            check(err < leaf_tol, f"{what}: {key} {err:.4f} of its update")
+    g = math.sqrt(sq[0] / max(sq[1], 1e-30))
+    r = math.sqrt(rs[0] / max(rs[1], 1e-30))
+    check(g < g_tol, f"{what}: global l2 {g:.4f}")
+    if rs_global is not None:
+        check(r < rs_global, f"{what}: running statistics global l2 {r:.4f}")
+    return (f"{what}: global l2 {g:.5f} (bound {g_tol}), worst leaf "
+            f"{worst['leaf'][0]:.4f} at {worst['leaf'][1]}, running "
+            f"statistics global l2 {r:.5f}, worst {worst['running'][0]:.4f}")
+
+
+def torch_equal(a, b):
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def per_replica_train_reference(device, x, y):
+    """The per-replica train step in one process: two copies of G, each
+    through its half with its own BN statistics, the gradients averaged
+    into copy 0, one SGD step; (mean loss, copy 0's state, each copy's
+    state)."""
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_supervised_loss)
+
+    gs = [seeded_g(device) for _ in range(2)]
+    opt = optimizers(gs[0])
+    losses = []
+    for r, g in enumerate(gs):
+        loss = make_supervised_loss(g)(x[r * 4:r * 4 + 4], y[r * 4:r * 4 + 4])
+        loss.backward()
+        losses.append(float(loss))
+    average_into_first([trainable_parameters(g) for g in gs])
+    opt.step()
+    copy_params(gs)
+    return sum(losses) / 2, [cpu_state(g) for g in gs]
+
+
+def average_into_first(param_lists):
+    """Copy 0's gradients become the mean over the copies."""
+    for ps in zip(*param_lists):
+        if ps[0].grad is not None:
+            ps[0].grad = sum(p.grad for p in ps) / len(ps)
+
+
+def copy_params(models):
+    import torch
+
+    with torch.no_grad():
+        for ps in zip(*(list(m.parameters()) for m in models)):
+            for p in ps[1:]:
+                p.copy_(ps[0])
+
+
+def per_replica_da_reference(device, x, y, xt):
+    """The per-replica 4-phase DA step (FC D, d_head 0, lambda 1e-3) in one
+    process: two copies of G and of D, each phase's forwards on each
+    copy's half (its own BN statistics), that phase's gradients averaged
+    into copy 0, its optimizer step, its parameters copied to copy 1
+    (JAX mesh.py:303-332 with adversarial.py:108-110's pmean); returns
+    (the mean metrics, G copies' states, D copy 0's state)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda.fused_ce import (
+        cross_entropy_upsampled)
+    from dasemanticsegmentationaml_tpu_torch.ops.losses import (
+        bce_with_logits, cross_entropy_ignore)
+    from dasemanticsegmentationaml_tpu_torch.ops.resize import (
+        resize_bilinear_align_corners)
+    from dasemanticsegmentationaml_tpu_torch.train.adversarial import _frozen
+
+    gs = [seeded_g(device) for _ in range(2)]
+    ds = [seeded_d(device, (False, False)) for _ in range(2)]
+    g_opt, d_opt = optimizers(gs[0], ds[0])
+    halves = [slice(0, 4), slice(4, 8)]
+    hw = tuple(x.shape[2:])
+    for m in gs + ds:
+        m.zero_grad(set_to_none=False)
+
+    def mean_step(models, opt):
+        average_into_first([list(m.parameters()) for m in models])
+        opt.step()
+        copy_params(models)
+
+    metrics = {"loss": 0.0, "loss_D1": 0.0, "src": 0.0, "tgt": 0.0}
+    ups = []
+    for g, h in zip(gs, halves):
+        feats = g.features(x[h])
+        up = resize_bilinear_align_corners(feats[0], hw)
+        loss = (cross_entropy_ignore(up, y[h])
+                + cross_entropy_upsampled(feats[1].contiguous(), y[h], hw)
+                + cross_entropy_upsampled(feats[2].contiguous(), y[h], hw))
+        loss.backward()
+        metrics["loss"] += float(loss) / 2
+        ups.append(up)
+    mean_step(gs, g_opt)
+    upts = []
+    for g, d, h in zip(gs, ds, halves):
+        g.zero_grad(set_to_none=False)
+        up = resize_bilinear_align_corners(g.features(xt[h])[0], hw)
+        with _frozen(d):
+            loss = bce_with_logits(d(F.softmax(up, dim=1)), 0.0) * 1e-3
+            loss.backward()
+        metrics["loss_D1"] += float(loss) / 2
+        upts.append(up)
+    mean_step(gs, g_opt)
+    for key, maps, label in (("src", ups, 0.0), ("tgt", upts, 1.0)):
+        for d, up in zip(ds, maps):
+            d.zero_grad(set_to_none=False)
+            loss = bce_with_logits(d(F.softmax(up.detach(), dim=1)), label)
+            loss.backward()
+            metrics[key] += float(loss) / 2
+        mean_step(ds, d_opt)
+    metrics = {"loss": metrics["loss"], "loss_D1": metrics["loss_D1"],
+               "loss_G": metrics["loss"] + metrics["loss_D1"],
+               "loss_adv": metrics["src"] + metrics["tgt"]}
+    torch.cuda.synchronize()
+    return metrics, [cpu_state(g) for g in gs], cpu_state(ds[0])
+
+
+def phase_parallel(device, card):
+    """Data parallelism across ranks (parallel/): two gloo ranks sharing
+    cuda:0 (NCCL refuses two ranks on one card) run one fp32 sharded train
+    step (TF32 off) at 2 x 4 x 1024 x 512 with --sync_bn True and False,
+    and one DA step the same way (sync: DW+BN D; per replica: FC D), each
+    held against the single-process reference on this card: sync mode
+    against the plain step on the global batch (loss rtol 1e-4, PERF.md
+    §2's card-row bounds: global l2 < 0.02 of the update, each leaf <
+    0.1, running statistics < 0.02; DA: the four losses rtol 1e-4, G the
+    same, D global l2 < 0.25 without the BN-fed conv biases, running
+    statistics 0.3 a leaf and 0.05 global), per-replica mode against one
+    process running each half through its own copy of the model and
+    averaging the gradients (rank r's statistics against copy r's). The
+    ranks' parameters are equal bit for bit; each rank launches 3 + 3 CE
+    kernels a train step and 2 + 2 a DA step, by its counters and by its
+    profile. Then the int64 counts of two ranks each on half of 16
+    prepared bf16 batches of 8 equal one process's over all of them, bit
+    for bit; and at world 1 over NCCL one sync-BN train step against the
+    step without a group (the same bounds), allreduce_counts through the
+    communicator, and sync BN timed against nn.BatchNorm2d and
+    torch.nn.SyncBatchNorm. Returns the kernels' launches in the ranks."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+    from dasemanticsegmentationaml_tpu_torch.train.adversarial import (
+        make_da_step)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import (
+        eval_counts)
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    t0 = time.perf_counter()
+    ranks = spawn_parallel(parallel_rank, lambda i, store, out:
+                           (i, 2, store, out), 2)
+    t_ranks = time.perf_counter() - t0
+    x, y, xt = (torch.from_numpy(a).to(device) for a in parallel_inputs())
+    init = cpu_state(seeded_g("cpu"))
+    launches = {"fused_ce_fwd": 0, "fused_ce_bwd": 0, "upsample_argmax": 0}
+    with fp32_math():
+        for mode in ("sync", "replica"):
+            got = [r[("train", mode)] for r in ranks]
+            check(got[0]["sums"] == got[1]["sums"],
+                  f"train {mode}: the ranks' parameters differ")
+            for r, g in enumerate(got):
+                check(g["launches"] == {"fused_ce_fwd": 3, "fused_ce_bwd": 3}
+                      and g["seen"] == g["launches"],
+                      f"train {mode} rank {r}: CE launches {g['launches']}, "
+                      f"profile {g['seen']}")
+                for name, n in g["launches"].items():
+                    launches[name] += n
+            if mode == "sync":
+                g = seeded_g(device)
+                want = float(make_train_step(g, optimizers(g))(x, y))
+                refs = [cpu_state(g)] * 2
+            else:
+                want, refs = per_replica_train_reference(device, x, y)
+            check(abs(got[0]["loss"] - want) <= 1e-4 * abs(want),
+                  f"train {mode}: loss {got[0]['loss']} against {want}")
+            log("parallel", f"train {mode}: loss {got[0]['loss']:.7f} "
+                f"against one process's {want:.7f}; "
+                + held_to(got[0]["state"], refs[0], init, "rank 0"))
+            log("parallel", held_to(
+                got[1]["state"], refs[1], init, f"train {mode} rank 1"))
+        d_init = {kind: cpu_state(seeded_d("cpu", kind))
+                  for kind in ((True, True), (False, False))}
+        bn_fed = {f"conv{i}_{s}.bias" for i in range(1, 5) for s in "dp"}
+        for mode, kind in (("sync", (True, True)), ("replica", (False, False))):
+            got = [r[("da", mode)] for r in ranks]
+            check(got[0]["sums"] == got[1]["sums"]
+                  and got[0]["metrics"] == got[1]["metrics"],
+                  f"da {mode}: the ranks differ")
+            for r, g in enumerate(got):
+                check(g["launches"] == {"fused_ce_fwd": 2, "fused_ce_bwd": 2}
+                      and g["seen"] == g["launches"],
+                      f"da {mode} rank {r}: CE launches {g['launches']}, "
+                      f"profile {g['seen']}")
+                for name, n in g["launches"].items():
+                    launches[name] += n
+            if mode == "sync":
+                g, d = seeded_g(device), seeded_d(device, kind)
+                m = make_da_step(g, d, *optimizers(g, d),
+                                 lambda_adv=1e-3)(x, y, xt)
+                want = {k: float(v) for k, v in m.items()}
+                g_refs, d_ref = [cpu_state(g)] * 2, cpu_state(d)
+            else:
+                want, g_refs, d_ref = per_replica_da_reference(device, x, y,
+                                                               xt)
+            for key, value in want.items():
+                check(abs(got[0]["metrics"][key] - value)
+                      <= 1e-4 * abs(value),
+                      f"da {mode} {key}: {got[0]['metrics'][key]} against "
+                      f"{value}")
+            log("parallel", f"da {mode}: {got[0]['metrics']} against one "
+                f"process's {want}; " + held_to(
+                    got[0]["g"], g_refs[0], init, "G", rs_tol=0.3,
+                    rs_global=0.05) + "; " + held_to(
+                    got[0]["d"], d_ref, d_init[kind], "D", g_tol=0.25,
+                    leaf_tol=None, rs_tol=0.3, rs_global=0.05,
+                    skip=bn_fed if kind == (True, True) else ()))
+            log("parallel", held_to(
+                got[1]["g"], g_refs[1], init, f"da {mode} rank 1's G",
+                rs_tol=0.3, rs_global=0.05))
+    g = seeded_g(device).eval()
+    hist, correct, total = eval_counts(g, eval_batches(device), 19,
+                                       prepare=lambda b: b, device=device,
+                                       amp_dtype=torch.bfloat16)
+    for r, rank in enumerate(ranks):
+        ev = rank["eval"]
+        check(torch.equal(ev["hist"], hist.cpu())
+              and (ev["correct"], ev["total"]) == (int(correct), total),
+              f"rank {r}: sharded eval counts differ from one process's")
+        check(ev["launches"] == ev["batches"] == 8,
+              f"rank {r}: {ev['launches']} upsample_argmax launches for "
+              f"{ev['batches']} batches")
+        launches["upsample_argmax"] += ev["launches"]
+    log("parallel", f"sharded eval: the two ranks' int64 counts over 8 + 8 "
+        f"batches equal one process's over 16, bit for bit ({total} pixels)")
+    t1 = time.perf_counter()
+    (nccl,) = spawn_parallel(nccl_rank, lambda i, store, out: (store, out), 1)
+    t_nccl = time.perf_counter() - t1
+    check(abs(nccl["nccl"]["loss"] - nccl["plain"]["loss"])
+          <= 1e-4 * abs(nccl["plain"]["loss"]), f"NCCL world 1: loss "
+          f"{nccl['nccl']['loss']} against {nccl['plain']['loss']}")
+    log("parallel", "NCCL world 1: sync-BN step against the step without a "
+        f"group: loss {nccl['nccl']['loss']:.7f} against "
+        f"{nccl['plain']['loss']:.7f}; " + held_to(
+            nccl["nccl"]["state"], nccl["plain"]["state"], init, "state"))
+    check(all(nccl["counts"]), f"allreduce_counts over NCCL: {nccl['counts']}")
+    for mode in ("sync", "replica"):
+        log("parallel", f"{card} | two gloo ranks on one card, fp32, 4 rows "
+            f"a rank at 1024x512: train step {mode} "
+            f"{ranks[0][('train', mode)]['ms']:.2f} ms, DA step {mode} "
+            f"{ranks[0][('da', mode)]['ms']:.2f} ms (rank 0, CUDA events)")
+    for (name, dtype), ms in nccl["bn_ms"].items():
+        log("parallel", f"{card} | BN forward + backward at {BN_TIMED} "
+            f"{dtype}, world 1 over NCCL: {name} {ms:.4f} ms")
+    log("parallel", f"passed: ranks {t_ranks:.1f} s, NCCL {t_nccl:.1f} s, "
+        f"in all {time.perf_counter() - t0:.1f} s; launches in the ranks "
+        f"{launches}")
+    return launches
+
+
 def main(argv=None):
     import argparse
     import concurrent.futures as futures
@@ -4308,6 +4893,10 @@ def main(argv=None):
     # last: after its profiles of graph replays (the card's tracer has lost
     # kernel records there) a later profile once saw no kernel at all
     serve_launches = phase_serve(device, card, window)
+    # after the profiled phases: its parent process profiles nothing (its
+    # ranks profile in fresh processes), and with it before the timing
+    # phases a CatBottleneck profile there saw no kernel in three tries
+    parallel_launches = phase_parallel(device, card)
 
     argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
     ce_shape, ce_hw = CE_MAIN_CASES[0]
@@ -4347,7 +4936,8 @@ def main(argv=None):
                       bound_upsample_argmax((2, 19, 128, 64), (1024, 512), 2),
                       device_ms=argmax[("kernel", "device")],
                       plain_device_ms=argmax[("plain", "device")],
-                      serve_launches=serve_launches["upsample_argmax"])
+                      serve_launches=serve_launches["upsample_argmax"],
+                      parallel_launches=parallel_launches["upsample_argmax"])
         ] + [
         kernel_record(f"fused_ce_{part}", CE_SOURCE, CE_REPLACES,
                       train_launches[f"fused_ce_{part}"],
@@ -4355,7 +4945,8 @@ def main(argv=None):
                       ce[(part, "kernel")], ce[(part, "plain")],
                       bound_ce(ce_shape, ce_hw, 2, n_valid, part == "bwd"),
                       device_ms=ce[(part, "kernel", "device")],
-                      plain_device_ms=ce[(part, "plain", "device")])
+                      plain_device_ms=ce[(part, "plain", "device")],
+                      parallel_launches=parallel_launches[f"fused_ce_{part}"])
         for part in ("fwd", "bwd")] + [
         kernel_record(f"fused_cat_s{s}", STDC_SOURCE, STDC_REPLACES[s],
                       stdc_launches[f"fused_cat_s{s}"], stdc_errs[s],

@@ -56,14 +56,32 @@ with a symbolic batch, or a bundle of the ``--export_batches`` sizes;
 
 ``--cuda`` picks the device: ``cpu``, or the index ``n`` of ``cuda:n``;
 without CUDA the latter stops with ``SystemExit``, it never drops to the
-CPU; an artifact is exported on that device and runs on its type. The
-multi-device exports (``--export_devices > 1``, ``--export_spatial``)
-and multi-device or multi-process runs stop with
+CPU; an artifact is exported on that device and runs on its type.
+
+Data parallelism (JAX cli.py:140-207, :289-310, :660-690, :725-750;
+``parallel/``): ``--num_devices N`` starts N ranks of one process group,
+one a device: cards ``--cuda`` to ``--cuda`` + N - 1 over NCCL (a machine
+with fewer stops, naming the count), or N CPU ranks over gloo under
+``--cuda cpu``. ``--num_processes``, ``--process_id`` and
+``--coordinator_address`` (or torchrun's environment) make this process
+one rank, on the card ``--cuda`` (plus torchrun's ``LOCAL_RANK``). Rank r
+loads rows ``[r B/N, (r+1) B/N)`` of every global batch and takes those
+rows' augmentation draws, so N ranks see the batches of one process.
+``--sync_bn True`` normalises over the global batch and ``False`` keeps
+each rank's BN statistics (single-process only, the batch divisible by
+N); evaluation reads rank 0's statistics. ``--eval_process_shard`` gives
+each rank a strided shard of the val set and sums the int64 counts. Only
+rank 0 writes checkpoints, TensorBoard, the JSONL log, the profile and
+the export, and prints; the parent of ``--num_devices`` ranks returns
+rank 0's result, and a rank that fails ends the others.
+
+The height-sharded mesh (``--spatial_devices > 1``) and the multi-device
+exports (``--export_devices > 1``, ``--export_spatial``) stop with
 ``SystemExit("...: not ported yet: see ROADMAP.md")``; ``--iter_size > 1``
 with ``--domain_adaptation`` and ``--export_batches`` with
-``--export_spatial`` stop with the JAX package's reasons. The flags that
-only the unported paths read, and ``--use_gpu`` (``INERT_FLAGS``), are
-accepted and do nothing; a value other than the default prints a note.
+``--export_spatial`` stop with the JAX package's reasons, and so do the
+data-parallel flags JAX refuses. ``--use_gpu`` (``INERT_FLAGS``) is
+accepted and does nothing; a value other than the default prints a note.
 
 Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --root <cityscapes> --cuda 0
@@ -73,6 +91,8 @@ Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --domain_adaptation True --root_source <gta5> \
           --root_target <cityscapes> --root <cityscapes> --cuda 0 \
           [--aug_type H-RP [--host_augment True] [--augment_labels True]]
+      python -m dasemanticsegmentationaml_tpu_torch.cli --root <cityscapes> \
+          --num_devices 4 --cuda 0 [--sync_bn False]
       python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
           --root <cityscapes> --pretrain_path best.pth --cuda 0 \
           [--eval_scan_window 8] [--quantize_int8 True \
@@ -87,6 +107,7 @@ import itertools
 import os
 
 import torch
+import torch.distributed as dist
 
 from .data import native
 from .data.augment import batch_generator
@@ -96,6 +117,11 @@ from .data.pipeline import Loader, prepare_batch
 from .models.bisenet import build_bisenet, trainable_parameters
 from .models.discriminator import build_discriminator
 from .ops.quantize import PRESET_FILTERS, quantize_model
+from .parallel.distributed import (assert_same_across_processes, barrier,
+                                   destroy, initialize, local_batch_size,
+                                   process_rank)
+from .parallel.mesh import (check_per_replica_batch, make_sharded_da_step,
+                            make_sharded_train_step, rank0_buffers)
 from .train.adversarial import make_da_step, train_da
 from .train.evaluate import EvalGraphs, evaluate
 from .train.optim import GradientAccumulator, make_optimizer
@@ -116,18 +142,11 @@ FAST_GEOMETRY_NOTE = ("--fast_device_geometry: accepted and inert on the "
                       "port (its 3-shear rotation avoids the TPU's slow "
                       "gathers; B-GS-R rotates by one gather here)")
 #: flags the port parses and does not read, each with the note printed
-#: when it is given a value other than its default: the ones only an
-#: unported path reads (that path itself stops in ``check_ported``), and
-#: ``--use_gpu``, which asks for nothing here
+#: when it is given a value other than its default: ``--use_gpu``, which
+#: asks for nothing here
 INERT_FLAGS = {
     "use_gpu": "--use_gpu: accepted for CLI compatibility; --cuda picks "
                "the device",
-    "sync_bn": "--sync_bn: inert; only multi-device runs read it, and "
-               "they are " + NOT_PORTED,
-    "process_id": "--process_id: inert; only multi-process runs read it, "
-                  "and they are " + NOT_PORTED,
-    "eval_process_shard": "--eval_process_shard: inert; only multi-process "
-                          "runs read it, and they are " + NOT_PORTED,
 }
 #: JAX cli.py:503-512
 EXPORT_BUNDLE_SPATIAL = (
@@ -170,10 +189,8 @@ def check_ported(args) -> None:
             args.export_devices > 1,
         "--export_spatial (the height-sharded artifact)":
             args.export_spatial,
-        "multi-process runs": (args.coordinator_address is not None
-                               or (args.num_processes or 1) > 1),
-        "multi-device runs": ((args.num_devices or 1) > 1
-                              or args.spatial_devices > 1),
+        "--spatial_devices > 1 (the height-sharded mesh)":
+            args.spatial_devices > 1,
     }
     for what, requested in unported.items():
         if requested:
@@ -358,11 +375,165 @@ def inert_flag_notes(args):
             if getattr(args, dest) != parser.get_default(dest)]
 
 
+def multi_process(args) -> bool:
+    """Is this process one rank of several (the flags, or torchrun's
+    environment)?"""
+    return ((args.num_processes or 1) > 1
+            or args.coordinator_address is not None
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+
+
+def check_parallel(args) -> int:
+    """The rank count of the run, after JAX's refusals (``build_mesh``,
+    JAX cli.py:164-207, and :147-159, :532, :595): per-replica BN is
+    single-process only and needs the batch divisible by the ranks;
+    ``--num_devices`` cannot take a subset of a multi-process run; each
+    rank loads batch / ranks samples."""
+    if multi_process(args):
+        world = args.num_processes or int(os.environ.get("WORLD_SIZE", "1"))
+        if world <= 1:
+            raise SystemExit(
+                "--coordinator_address needs --num_processes > 1 (or "
+                "torchrun's WORLD_SIZE)")
+        if args.num_devices not in (None, world):
+            raise SystemExit("--num_devices cannot subset a multi-process "
+                             "mesh (every process's devices participate)")
+        if not args.sync_bn:
+            raise SystemExit("--sync_bn False (per-replica BN shard_map) "
+                             "is single-process only; multi-process runs "
+                             "use global-batch sync BN")
+    else:
+        world = args.num_devices or 1
+        if world < 1:
+            raise SystemExit(f"--num_devices {world}: expected >= 1")
+    if world > 1 and not args.domain_shift:
+        if not args.sync_bn:
+            check_per_replica_batch(args.batch_size, world)
+        local_batch_size(args.batch_size, world)
+    return world
+
+
+def resolve_devices(cuda: str, n: int):
+    """The devices of ``--num_devices n``: n CPU ranks under ``--cuda
+    cpu``, else the cards ``--cuda`` to ``--cuda`` + n - 1, which must all
+    exist: never fewer ranks, never the CPU."""
+    first = resolve_device(cuda)
+    if first.type == "cpu":
+        return [first] * n
+    have = torch.cuda.device_count()
+    if first.index + n > have:
+        raise SystemExit(
+            f"--num_devices {n} --cuda {cuda}: needs {n} CUDA devices "
+            f"(cuda:{first.index} to cuda:{first.index + n - 1}); this "
+            f"machine has {have}")
+    return [torch.device("cuda", first.index + r) for r in range(n)]
+
+
+def _rank_main(args, rank: int, world: int, device: str, init: str,
+               results) -> None:
+    """One rank of ``--num_devices`` (a spawned process): join the group,
+    run, and hand rank 0's result to the parent."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    elif "OMP_NUM_THREADS" not in os.environ:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize(init, world, rank, device=device)
+    try:
+        result = run(args, device)
+    finally:
+        destroy()
+    if rank == 0:
+        results.put(result)
+
+
+def spawn_ranks(args, devices):
+    """``--num_devices``: one spawned process a device, meeting through a
+    file store in a fresh temporary directory; returns rank 0's result.
+    A rank that exits with an error ends the others and stops the run."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    store = tempfile.mkdtemp(prefix="dseg-ranks-")
+    results = ctx.SimpleQueue()
+    procs = [ctx.Process(target=_rank_main, name=f"rank-{r}",
+                         args=(args, r, len(devices), str(dev),
+                               "file://" + os.path.join(store, "store"),
+                               results))
+             for r, dev in enumerate(devices)]
+    result = None
+    try:
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            # drained while rank 0 lives, so that its put never waits
+            if result is None and not results.empty():
+                result = results.get()
+            failed = [p for p in procs if p.exitcode not in (None, 0)]
+            if failed:
+                raise SystemExit(f"{failed[0].name} exited with code "
+                                 f"{failed[0].exitcode}; the other ranks "
+                                 f"were stopped")
+            time.sleep(0.2)
+        failed = [p for p in procs if p.exitcode != 0]
+        if failed:
+            raise SystemExit(f"{failed[0].name} exited with code "
+                             f"{failed[0].exitcode}")
+        return result if result is not None else results.get()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
-    device = resolve_device(args.cuda)
+    world = check_parallel(args)
+    if multi_process(args):
+        device = resolve_device(args.cuda)
+        if device.type == "cuda" and os.environ.get("LOCAL_RANK"):
+            device = resolve_device(
+                str(device.index + int(os.environ["LOCAL_RANK"])))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        initialize(args.coordinator_address, world, args.process_id,
+                   device=device)
+        try:
+            return run(args, device)
+        finally:
+            destroy()
+    if world > 1:
+        return spawn_ranks(args, resolve_devices(args.cuda, world))
+    return run(args, resolve_device(args.cuda))
+
+
+def run(args, device: torch.device):
+    """The run on ``device``: one process, or one rank of the process
+    group this process has joined."""
+    rank, world = process_rank()
+    if rank > 0:
+        # only rank 0 prints (JAX cli.py:467); errors still reach stderr
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return _run(args, device, rank, world)
+    return _run(args, device, rank, world)
+
+
+def _run(args, device, rank: int, world: int):
     pin = device.type == "cuda"
+    if world > 1:
+        print(f"data parallel: {world} ranks ({dist.get_backend()}), "
+              f"--sync_bn {args.sync_bn}, {args.batch_size // world} of "
+              f"each batch's {args.batch_size} rows a rank")
+    # per-replica BN keeps each rank's statistics: evaluation reads rank
+    # 0's, as JAX evaluates shard 0's state (cli.py:540, :600)
+    per_replica = world > 1 and not args.sync_bn
     if args.fast_device_geometry:
         print(FAST_GEOMETRY_NOTE)
     for note in inert_flag_notes(args):
@@ -385,8 +556,11 @@ def main(argv=None):
         if ds is None or not args.data_cache:
             return ds
         from .data.cache import open_or_build
+        # ranks > 0 wait for rank 0's publish (JAX cli.py:316-327)
         return open_or_build(ds, args.data_cache,
-                             num_workers=args.num_workers)
+                             num_workers=args.num_workers,
+                             process_id=rank,
+                             wait_for_publish=3600.0 if world > 1 else 0.0)
 
     def maybe_host_augment(ds):
         """--host_augment: the menu runs on the host, in the train
@@ -422,6 +596,14 @@ def main(argv=None):
     loader_val = Loader(val_ds, args.eval_batch_size,
                         num_workers=args.num_workers, pin_memory=pin,
                         worker_timeout=args.worker_timeout)
+    # int8 calibration reads loader_val, whole on every rank; evaluation
+    # reads a strided shard a rank whose counts are summed (JAX
+    # cli.py:228-247, 391-397)
+    eval_sharded = world > 1 and args.eval_process_shard
+    loader_val_eval = Loader(
+        Subset(val_ds, list(range(rank, len(val_ds), world))),
+        args.eval_batch_size, num_workers=args.num_workers, pin_memory=pin,
+        worker_timeout=args.worker_timeout) if eval_sharded else loader_val
 
     # ---- model ------------------------------------------------------------
     model = build_bisenet(args.num_classes, device=device,
@@ -439,10 +621,14 @@ def main(argv=None):
             images, labels = batch
             generator = (batch_generator(args.seed, epoch, it, device)
                          if aug_type else None)
+            # a rank's rows of the global batch take those rows' draws
+            rows = ((rank * images.shape[0], args.batch_size)
+                    if aug_type and world > 1 else None)
             return prepare_batch(images, labels, device=device, remap=remap,
                                  dtype=amp_dtype or torch.float32,
                                  aug_type=aug_type, generator=generator,
-                                 augment_labels=args.augment_labels)
+                                 augment_labels=args.augment_labels,
+                                 rows=rows)
         return prepare
 
     prepare_val = make_prepare(None, remap)
@@ -452,11 +638,18 @@ def main(argv=None):
     graphs = EvalGraphs()
 
     def evaluate_fn(m):
-        return evaluate(m, loader_val, args.num_classes, prepare=prepare_val,
-                        device=device, use_fused_kernel=args.use_fused_eval,
-                        amp_dtype=amp_dtype,
-                        scan_window=args.eval_scan_window,
-                        fetch_timeout=args.fetch_timeout, graphs=graphs)
+        with (rank0_buffers(m) if per_replica
+              else contextlib.nullcontext()):
+            result = evaluate(m, loader_val_eval, args.num_classes,
+                              prepare=prepare_val, device=device,
+                              use_fused_kernel=args.use_fused_eval,
+                              amp_dtype=amp_dtype,
+                              scan_window=args.eval_scan_window,
+                              fetch_timeout=args.fetch_timeout,
+                              graphs=graphs, cross_process_sum=eval_sharded)
+        # the best-checkpoint decision must not part (JAX cli.py:457-461)
+        assert_same_across_processes(result[1], "val mIoU")
+        return result
 
     with fp32_math() if amp_dtype is None else contextlib.nullcontext():
         if args.domain_shift:
@@ -473,10 +666,13 @@ def main(argv=None):
                     filter_fn=PRESET_FILTERS[args.quantize_filter],
                     clip=args.quantize_clip, amp_dtype=amp_dtype)
             if args.export_model:
-                export_model(args, eval_model, amp_dtype, device)
+                if rank == 0:
+                    export_model(args, eval_model, amp_dtype, device)
+                barrier()
             precision, miou = evaluate_fn(eval_model)
             return {"precision": precision, "miou": miou}
-        profiler = Profiler(args.profile_dir) if args.profile_dir else None
+        profiler = (Profiler(args.profile_dir)
+                    if args.profile_dir and rank == 0 else None)
         try:
             if args.domain_adaptation:
                 source_ds = maybe_host_augment(maybe_cache(GtaV(
@@ -489,11 +685,11 @@ def main(argv=None):
                     args, model, source_ds, target_ds,
                     make_prepare(None if host_aug else args.aug_type, True),
                     make_prepare(None, False), evaluate_fn, amp_dtype,
-                    device, profiler)
+                    device, profiler, rank, world)
             else:
                 max_miou = _train_supervised(
                     args, model, train_ds, make_prepare(aug_train, remap),
-                    evaluate_fn, amp_dtype, pin, profiler)
+                    evaluate_fn, amp_dtype, pin, profiler, rank, world)
         finally:
             if profiler is not None:
                 profiler.close()
@@ -502,16 +698,26 @@ def main(argv=None):
     return {"precision": precision, "miou": miou, "max_miou": max_miou}
 
 
+def _writer_and_logger(args, rank: int):
+    """TensorBoard and the JSONL log, on rank 0 only (JAX cli.py:315-319:
+    the ranks would append duplicates to one file)."""
+    return ((make_writer(args.tensorboard) if rank == 0 else None),
+            JsonlLogger(args.jsonl_log if rank == 0 else None))
+
+
 def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
-                      amp_dtype, pin, profiler) -> float:
+                      amp_dtype, pin, profiler, rank: int = 0,
+                      world: int = 1) -> float:
     """The supervised branch (JAX cli.py:713-763; reference
     train.py:465-470,501-509). SGD takes weight decay 1e-4, hard-coded as
     the reference does (train.py:504), not ``--weight_decay`` (the DA
-    value); Adam and RMSprop take none."""
+    value); Adam and RMSprop take none. Over ranks: each loads its slice
+    of the global batch and runs the sharded step (JAX cli.py:725-750)."""
     loader_train = Loader(train_ds, args.batch_size, shuffle=True,
                           seed=args.seed, drop_last=True,
                           num_workers=args.num_workers, pin_memory=pin,
-                          worker_timeout=args.worker_timeout)
+                          worker_timeout=args.worker_timeout,
+                          process_id=rank, process_count=world)
     wd = {"sgd": 1e-4}.get(args.optimizer, 0.0)
     optimizer = make_optimizer(
         args.optimizer, trainable_parameters(model, args.use_conv_last),
@@ -520,10 +726,15 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
     accumulator = (GradientAccumulator(optimizer, args.iter_size)
                    if args.iter_size > 1 else None)
     args.epoch_start_i = maybe_resume(args, model, optimizer, accumulator)
-    step = make_train_step(model, optimizer, accumulator=accumulator,
-                           ohem=args.ohem, amp_dtype=amp_dtype)
-    writer = make_writer(args.tensorboard)
-    logger = JsonlLogger(args.jsonl_log)
+    if world > 1:
+        step = make_sharded_train_step(
+            model, optimizer, num_classes=args.num_classes,
+            sync_bn=args.sync_bn, ohem=args.ohem, accumulator=accumulator,
+            amp_dtype=amp_dtype)
+    else:
+        step = make_train_step(model, optimizer, accumulator=accumulator,
+                               ohem=args.ohem, amp_dtype=amp_dtype)
+    writer, logger = _writer_and_logger(args, rank)
     try:
         return train(args, model, optimizer, loader_train, prepare=prepare,
                      evaluate_fn=evaluate_fn, train_step=step,
@@ -538,22 +749,25 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
 
 def _train_da(args, model, source_ds, target_ds, prepare_source,
               prepare_target, evaluate_fn, amp_dtype, device,
-              profiler) -> float:
+              profiler, rank: int = 0, world: int = 1) -> float:
     """The DA branch (JAX cli.py:601-711; reference train.py:134-299):
     GTA5 source batches (raw ids remapped, augmented by ``--aug_type``)
     shuffled with ``seed``, Cityscapes target batches shuffled with
     ``seed + 1``; the discriminator seeded with ``seed + 2``; SGD for G
     with ``--momentum`` and ``--weight_decay`` (train.py:170-171),
-    Adam(0.9, 0.99) for D (train.py:172)."""
+    Adam(0.9, 0.99) for D (train.py:172). Over ranks: each loads its
+    slices and runs the sharded DA step (JAX cli.py:660-690)."""
     pin = device.type == "cuda"
     loader_source = Loader(source_ds, args.batch_size, shuffle=True,
                            seed=args.seed, drop_last=True,
                            num_workers=args.num_workers, pin_memory=pin,
-                           worker_timeout=args.worker_timeout)
+                           worker_timeout=args.worker_timeout,
+                           process_id=rank, process_count=world)
     loader_target = Loader(target_ds, args.batch_size, shuffle=True,
                            seed=args.seed + 1, drop_last=True,
                            num_workers=args.num_workers, pin_memory=pin,
-                           worker_timeout=args.worker_timeout)
+                           worker_timeout=args.worker_timeout,
+                           process_id=rank, process_count=world)
     d_model = build_discriminator(
         args.num_classes, args.depthwise, args.batch_norm, device=device,
         generator=torch.Generator().manual_seed(args.seed + 2))
@@ -575,12 +789,15 @@ def _train_da(args, model, source_ds, target_ds, prepare_source,
     args.epoch_start_i = maybe_resume(args, model, g_opt)
     if args.resume:
         maybe_resume(args, d_model, d_opt, alias="latest_D1")
-    step = make_da_step(model, d_model, g_opt, d_opt,
-                        lambda_adv=args.lambda_adv_target1,
-                        d_head=args.d_head, step_mode=args.da_step_mode,
-                        amp_dtype=amp_dtype)
-    writer = make_writer(args.tensorboard)
-    logger = JsonlLogger(args.jsonl_log)
+    kwargs = dict(lambda_adv=args.lambda_adv_target1, d_head=args.d_head,
+                  step_mode=args.da_step_mode, amp_dtype=amp_dtype)
+    if world > 1:
+        step = make_sharded_da_step(model, d_model, g_opt, d_opt,
+                                    num_classes=args.num_classes,
+                                    sync_bn=args.sync_bn, **kwargs)
+    else:
+        step = make_da_step(model, d_model, g_opt, d_opt, **kwargs)
+    writer, logger = _writer_and_logger(args, rank)
     try:
         return train_da(
             args, model, d_model, g_opt, d_opt, loader_source, loader_target,

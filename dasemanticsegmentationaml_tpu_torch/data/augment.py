@@ -47,7 +47,7 @@ nearest sampling and the ignore fill 255.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -498,13 +498,21 @@ def apply_params(imgs: torch.Tensor, labels: torch.Tensor, aug_type: str,
 
 def augment_batch(imgs: torch.Tensor, labels: torch.Tensor,
                   aug_type: Optional[str], generator: torch.Generator,
-                  augment_labels: bool = False, apply_prob: float = 0.5):
+                  augment_labels: bool = False, apply_prob: float = 0.5,
+                  rows: Optional[Tuple[int, int]] = None):
     """RandomApply(p=0.5)-wrapped menu on every sample of a batch, with
-    parameters drawn by ``generator`` (JAX :744)."""
+    parameters drawn by ``generator`` (JAX :744). ``rows`` = (start,
+    global batch): the batch is rows ``[start, start + B)`` of a global
+    batch (a data-parallel rank's slice), and takes those rows' draws of
+    the global batch's, as JAX augments the global batch from one key
+    (cli.py:404-430)."""
     if aug_type is None:
         return imgs, labels
     bsz, h, w = imgs.shape[:3]
-    params = sample_params(aug_type, bsz, h, w, generator, apply_prob)
+    start, total = rows if rows is not None else (0, bsz)
+    params = sample_params(aug_type, total, h, w, generator, apply_prob)
+    if rows is not None:
+        params = {k: v[start:start + bsz] for k, v in params.items()}
     return apply_params(imgs, labels, aug_type, params, augment_labels)
 
 

@@ -40,6 +40,7 @@ import json
 import os
 import shutil
 import socket
+import time
 import uuid
 from typing import Optional, Tuple
 
@@ -205,8 +206,9 @@ def build_cache(dataset, cache_dir: str, num_workers: int = 4) -> str:
     return cache_dir
 
 
-def open_or_build(dataset, cache_root: str,
-                  num_workers: int = 4) -> CachedDataset:
+def open_or_build(dataset, cache_root: str, num_workers: int = 4,
+                  process_id: int = 0,
+                  wait_for_publish: float = 0.0) -> CachedDataset:
     """The one-call entry: a CachedDataset for ``dataset``, building the
     cache if this exact content and config is not cached yet.
 
@@ -214,11 +216,24 @@ def open_or_build(dataset, cache_root: str,
     subdirectory of ``cache_root`` keyed by fingerprint, so one
     ``--data_cache`` directory serves the source, target and val datasets
     and survives dataset edits (stale entries are never opened again).
+
+    ``wait_for_publish`` > 0 (a rank of a data-parallel run): a rank above
+    0 polls for rank 0's published manifest for up to that many seconds
+    instead of decoding the whole dataset into a build that loses the
+    rename race, and builds its own copy only if the wait runs out (JAX
+    cache.py:222-250).
     """
     fp = dataset_fingerprint(dataset)
     cache_dir = os.path.join(cache_root, fp[:16])
-    if not os.path.exists(os.path.join(cache_dir, _MANIFEST)):
-        build_cache(dataset, cache_dir, num_workers=num_workers)
+    manifest = os.path.join(cache_dir, _MANIFEST)
+    if not os.path.exists(manifest):
+        if process_id > 0 and wait_for_publish > 0:
+            deadline = time.monotonic() + wait_for_publish
+            while (not os.path.exists(manifest)
+                   and time.monotonic() < deadline):
+                time.sleep(0.5)
+        if not os.path.exists(manifest):
+            build_cache(dataset, cache_dir, num_workers=num_workers)
     cached = CachedDataset(cache_dir,
                            aug_type=getattr(dataset, "aug_type", None))
     if cached._man["fingerprint"] != fp:  # pragma: no cover - paranoia

@@ -121,14 +121,17 @@ def prepare_batch(images_u8, labels_u8, *, device: torch.device,
                   memory_format: torch.memory_format = torch.contiguous_format,
                   aug_type: Optional[str] = None,
                   generator: Optional[torch.Generator] = None,
-                  augment_labels: bool = False
+                  augment_labels: bool = False,
+                  rows: Optional[Tuple[int, int]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """uint8 NHWC images + uint8 NHW labels -> normalised NCHW images of
     ``dtype`` and int32 labels, on ``device`` (JAX pipeline.py:98-125).
     ``aug_type``: augment on the 0-255 float scale first, with parameters
     drawn by ``generator`` (on ``device``; ``augment.batch_generator``),
     warping the labels too when ``augment_labels``, as the reference
-    augments PIL images before ToTensor (GTAV.py:87). Then
+    augments PIL images before ToTensor (GTAV.py:87); ``rows`` = (start,
+    global batch) when the batch is a rank's slice of a global batch
+    (``augment.augment_batch``). Then
     ``((x / 255) - mean) / std`` in fp32, in that order, and ``remap``
     maps raw GTA5 ids to trainIds. From pinned host tensors it only
     enqueues work: the constants are cached per device
@@ -143,7 +146,7 @@ def prepare_batch(images_u8, labels_u8, *, device: torch.device,
         if generator is None:
             raise ValueError("augmentation needs a generator")
         imgs, labels = augment_batch(imgs, labels, aug_type, generator,
-                                     augment_labels)
+                                     augment_labels, rows=rows)
     imgs = (imgs / 255.0 - mean) / std
     imgs = imgs.permute(0, 3, 1, 2).contiguous(memory_format=memory_format)
     imgs = imgs.to(dtype)
@@ -163,14 +166,30 @@ class Loader:
     to the card runs asynchronously. ``worker_timeout``: the seconds a
     sample's decode may take before ``PipelineStallError`` names it
     (``--worker_timeout``; <= 0 or None waits for ever).
+
+    ``process_count`` > 1: ``batch_size`` is the global batch, and this
+    loader yields rank ``process_id``'s contiguous slice of each, rows
+    ``[pid * local, (pid + 1) * local)`` with ``local = batch_size //
+    process_count`` (JAX pipeline.py:137-150, 187-191; torch's
+    ``DistributedSampler`` in batch form). The batch must divide by the
+    count, and a sharded loader must drop the ragged tail, which cannot be
+    split evenly.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,
                  num_workers: int = 4, pin_memory: bool = False,
-                 worker_timeout: Optional[float] = 120.0):
+                 worker_timeout: Optional[float] = 120.0,
+                 process_id: int = 0, process_count: int = 1):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if batch_size % max(process_count, 1):
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"process_count {process_count}")
+        if process_count > 1 and not drop_last:
+            raise ValueError("process-sharded loading requires drop_last "
+                             "(a ragged tail batch cannot be split evenly "
+                             "across processes)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -179,6 +198,8 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.pin_memory = pin_memory
         self.worker_timeout = _timeout(worker_timeout)
+        self.process_id = process_id
+        self.process_count = max(process_count, 1)
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -210,9 +231,15 @@ class Loader:
         pool = _DaemonPool(self.num_workers, name="decode")
         pending: collections.deque = collections.deque()
 
+        local = bs // self.process_count
+        lo = self.process_id * local
+
         def submit(b: int) -> None:
+            rows = order[b * bs:(b + 1) * bs]
+            if self.process_count > 1:
+                rows = rows[lo:lo + local]
             pending.append([(pool.submit(self.dataset.__getitem__, int(i)),
-                             int(i)) for i in order[b * bs:(b + 1) * bs]])
+                             int(i)) for i in rows])
 
         def result(b: int, fut: futures.Future, index: int):
             try:

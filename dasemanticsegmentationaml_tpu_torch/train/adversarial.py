@@ -84,14 +84,39 @@ def make_da_step(g, d, g_opt, d_opt, *, lambda_adv: float,
                  ignore_index: int = 255, d_head: int = 0,
                  step_mode: str = "interleaved",
                  amp_dtype: Optional[torch.dtype] = None,
-                 ce: Callable = cross_entropy_upsampled):
+                 ce: Callable = cross_entropy_upsampled, reducer=None):
     """step(src_images, src_labels, tgt_images) -> metrics, a dict of
     detached device scalars: ``loss`` (the seg loss), ``loss_D1`` (lambda *
     adversarial BCE), ``loss_G`` (their sum) and ``loss_adv`` (D's two
     BCEs) (JAX :212-217). G and D must be in train mode; the optimizers'
-    learning rates are set by the caller."""
+    learning rates are set by the caller.
+
+    ``reducer``: a data-parallel rank's ``parallel/mesh.py::Reducer``.
+    Each loss is then backpropagated as the rank's share of the global
+    one, the gradients are summed over the ranks at JAX's reduce points
+    (``reduce`` :108-110: before each optimizer step of the interleaved
+    step, before the two steps of the combined one) and the metrics are
+    the global batch's."""
     if step_mode not in ("interleaved", "combined"):
         raise ValueError(f"unknown DA step_mode: {step_mode!r}")
+
+    def backward(loss, share):
+        """Backpropagate ``loss``, as the rank's share of it under a
+        reducer; returns what was backpropagated."""
+        if reducer is not None:
+            loss = loss * share
+        loss.backward()
+        return loss
+
+    def reduce(optimizer):
+        if reducer is not None:
+            reducer.grads(optimizer)
+
+    def shares(src_labels):
+        """(the seg loss's share, the BCEs' share) of this rank."""
+        if reducer is None:
+            return None, None
+        return reducer.ce_share(src_labels), reducer.mean_share
 
     def autocast(device_type):
         if amp_dtype is None:
@@ -127,46 +152,49 @@ def make_da_step(g, d, g_opt, d_opt, *, lambda_adv: float,
         d_opt.zero_grad(set_to_none=False)
 
     def interleaved(src_images, src_labels, tgt_images):
+        seg_share, mean_share = shares(src_labels)
         zero_grad()
         # phase 1: G segmentation update on source
         feats, up_src = heads(src_images)
-        loss = seg_loss(feats, up_src, src_labels)
-        loss.backward()
+        loss = backward(seg_loss(feats, up_src, src_labels), seg_share)
+        reduce(g_opt)
         g_opt.step()
         # phase 2: G adversarial update on target, D frozen
         _, up_tgt = heads(tgt_images)
         g_opt.zero_grad(set_to_none=False)
         with _frozen(d):
-            loss_d1 = d_bce(F.softmax(up_tgt, dim=1), SOURCE_LABEL) \
-                * lambda_adv
-            loss_d1.backward()
+            loss_d1 = backward(d_bce(F.softmax(up_tgt, dim=1), SOURCE_LABEL)
+                               * lambda_adv, mean_share)
+        reduce(g_opt)
         g_opt.step()
         # phases 3 and 4: D on the detached maps (train.py:243-244)
         probs_src = F.softmax(up_src.detach(), dim=1)
         probs_tgt = F.softmax(up_tgt.detach(), dim=1)
-        loss_src = d_bce(probs_src, SOURCE_LABEL)
-        loss_src.backward()
+        loss_src = backward(d_bce(probs_src, SOURCE_LABEL), mean_share)
+        reduce(d_opt)
         d_opt.step()
         loss_tgt = d_bce(probs_tgt, TARGET_LABEL)
         d_opt.zero_grad(set_to_none=False)
-        loss_tgt.backward()
+        loss_tgt = backward(loss_tgt, mean_share)
+        reduce(d_opt)
         d_opt.step()
         return loss, loss_d1, loss_src, loss_tgt
 
     def combined(src_images, src_labels, tgt_images):
+        seg_share, mean_share = shares(src_labels)
         zero_grad()
         with _frozen(d):
             feats, up_src = heads(src_images)
-            loss = seg_loss(feats, up_src, src_labels)
-            loss.backward()
+            loss = backward(seg_loss(feats, up_src, src_labels), seg_share)
             _, up_tgt = heads(tgt_images)
-            loss_d1 = d_bce(F.softmax(up_tgt, dim=1), SOURCE_LABEL) \
-                * lambda_adv
-            loss_d1.backward()
-        loss_src = d_bce(F.softmax(up_src.detach(), dim=1), SOURCE_LABEL)
-        loss_src.backward()
-        loss_tgt = d_bce(F.softmax(up_tgt.detach(), dim=1), TARGET_LABEL)
-        loss_tgt.backward()
+            loss_d1 = backward(d_bce(F.softmax(up_tgt, dim=1), SOURCE_LABEL)
+                               * lambda_adv, mean_share)
+        reduce(g_opt)
+        loss_src = backward(d_bce(F.softmax(up_src.detach(), dim=1),
+                                  SOURCE_LABEL), mean_share)
+        loss_tgt = backward(d_bce(F.softmax(up_tgt.detach(), dim=1),
+                                  TARGET_LABEL), mean_share)
+        reduce(d_opt)
         g_opt.step()
         d_opt.step()
         return loss, loss_d1, loss_src, loss_tgt
@@ -174,11 +202,13 @@ def make_da_step(g, d, g_opt, d_opt, *, lambda_adv: float,
     run = interleaved if step_mode == "interleaved" else combined
 
     def step(src_images, src_labels, tgt_images):
-        loss, loss_d1, loss_src, loss_tgt = run(src_images, src_labels,
-                                                tgt_images)
-        loss, loss_d1 = loss.detach(), loss_d1.detach()
+        losses = run(src_images, src_labels, tgt_images)
+        if reducer is not None:
+            loss, loss_d1, loss_src, loss_tgt = reducer.total(list(losses))
+        else:
+            loss, loss_d1, loss_src, loss_tgt = (t.detach() for t in losses)
         return {"loss": loss, "loss_D1": loss_d1, "loss_G": loss + loss_d1,
-                "loss_adv": loss_src.detach() + loss_tgt.detach()}
+                "loss_adv": loss_src + loss_tgt}
 
     return step
 

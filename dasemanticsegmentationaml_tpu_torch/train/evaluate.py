@@ -51,6 +51,7 @@ from ..ops.cuda import int8_conv as _int8_conv
 from ..ops.cuda import upsample_argmax as _upsample_argmax
 from ..ops.cuda.upsample_argmax import upsample_argmax
 from ..ops.metrics import confusion_matrix, per_class_iou
+from ..parallel.distributed import allreduce_counts
 
 #: the kernel launch counters a captured graph holds launches of
 _COUNTERS = {"upsample_argmax": _upsample_argmax, "int8_conv": _int8_conv}
@@ -258,14 +259,25 @@ def evaluate(model, loader, num_classes: int, *,
              amp_dtype: Optional[torch.dtype] = None,
              scan_window: int = 0, fetch_timeout: Optional[float] = FETCH_TIMEOUT,
              graphs: Optional[EvalGraphs] = None,
-             print_results: bool = True) -> Tuple[float, float]:
+             print_results: bool = True,
+             cross_process_sum: bool = False) -> Tuple[float, float]:
     """Whole-dataset eval; returns (precision, miou) like reference val()
-    (JAX evaluate.py:133-258)."""
+    (JAX evaluate.py:133-258).
+
+    ``cross_process_sum``: each rank of the process group was given a
+    loader over
+    its shard of the val set; the int64 counts are summed over the ranks
+    before the metrics (``parallel/distributed.py::allreduce_counts``;
+    JAX :158-164, :242-245), so every rank gets the metrics of the whole
+    set, bit-identical to one process's, confusion matrices being sums of
+    integers."""
     hist, correct, total = eval_counts(
         model, loader, num_classes, prepare=prepare, device=device,
         use_fused_kernel=use_fused_kernel, amp_dtype=amp_dtype,
         scan_window=scan_window, fetch_timeout=fetch_timeout,
         graphs=graphs)
+    if cross_process_sum:
+        hist, correct, total = allreduce_counts(hist, correct, total)
     precision = int(correct.item()) / max(total, 1)
     miou_list = per_class_iou(hist.cpu()).numpy()
     miou = float(np.mean(miou_list))

@@ -43,15 +43,18 @@ from .optim import set_learning_rate
 def make_supervised_loss(model, *, ohem: Optional[dict] = None,
                          ignore_index: int = 255,
                          amp_dtype: Optional[torch.dtype] = None,
-                         ce: Callable = cross_entropy_upsampled):
+                         ce: Callable = cross_entropy_upsampled,
+                         ohem_loss: Callable = ohem_cross_entropy):
     """(images, labels) -> the summed loss of the three heads (JAX
     supervised.py:38-83).
 
     Cross-entropy: ``features`` gives the heads at their native strides
     and ``ce`` (the fused upsample+CE, a CUDA kernel on the card) takes
     each to the label size. ``ohem``: {'threshold', 'keep_num'} runs the
-    full forward (upsampled heads) and ``ohem_cross_entropy``, as JAX
-    does. ``amp_dtype``: run the model under ``torch.autocast``; the loss
+    full forward (upsampled heads) and ``ohem_loss`` (``ohem_cross_entropy``;
+    a data-parallel sync step passes its global form,
+    ``parallel/mesh.py::sync_ohem_cross_entropy``), as JAX does.
+    ``amp_dtype``: run the model under ``torch.autocast``; the loss
     is fp32 either way."""
 
     def autocast(device_type):
@@ -64,8 +67,8 @@ def make_supervised_loss(model, *, ohem: Optional[dict] = None,
             heads = model(images) if ohem is not None \
                 else model.features(images)
         if ohem is not None:
-            losses = [ohem_cross_entropy(o, labels, ohem["threshold"],
-                                         ohem["keep_num"], ignore_index)
+            losses = [ohem_loss(o, labels, ohem["threshold"],
+                                ohem["keep_num"], ignore_index)
                       for o in heads]
         else:
             hw = tuple(images.shape[2:])

@@ -24,6 +24,13 @@ Counterpart of ``dasemanticsegmentationaml_tpu/cli.py::make_checkpoint_fn``
   that dies between the two resumes the newer state at the older epoch,
   as the JAX package's does.
 
+In a data-parallel run (a process group of more than one rank) every
+rank calls the function and only rank 0 writes, then every rank waits at a
+barrier, so that none reads a half-written file (JAX cli.py:98-123 writes
+the ``.pth`` and the marker from process 0). Rank 0's module is the one
+saved: in the per-replica BN mode its statistics are shard 0's, as JAX's
+``untile_state`` exports them.
+
 The JAX package keeps its state as orbax trees under ``<dir>/orbax/``;
 neither side resumes the other's state, and both read each other's
 ``.pth``.
@@ -37,6 +44,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.distributed import barrier, process_rank
 from . import state_io
 
 
@@ -74,20 +82,22 @@ def make_checkpoint_fn(save_model_path=None):
                       optimizer: torch.optim.Optimizer, accumulator=None,
                       model: Optional[str] = None,
                       epoch: Optional[int] = None) -> str:
-        os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, f"{name}.pth")
-        weights = reference_state(module)
-        if dataparallel_prefix:
-            weights = {f"module.{k}": v for k, v in weights.items()}
-        torch.save(weights, path)
-        state_io.save_train_state(
-            state_dir, name, train_state(module, optimizer, accumulator,
-                                         epoch))
-        alias = "latest_D1" if model == "discriminator" else "latest"
-        if name != alias:
-            state_io.link_train_state(state_dir, name, alias)
-        if epoch is not None:
-            state_io.write_epoch_marker(state_dir, epoch)
+        if process_rank()[0] == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            weights = reference_state(module)
+            if dataparallel_prefix:
+                weights = {f"module.{k}": v for k, v in weights.items()}
+            torch.save(weights, path)
+            state_io.save_train_state(
+                state_dir, name, train_state(module, optimizer, accumulator,
+                                             epoch))
+            alias = "latest_D1" if model == "discriminator" else "latest"
+            if name != alias:
+                state_io.link_train_state(state_dir, name, alias)
+            if epoch is not None:
+                state_io.write_epoch_marker(state_dir, epoch)
+        barrier()
         return path
 
     return checkpoint_fn

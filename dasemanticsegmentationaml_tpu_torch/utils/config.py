@@ -10,7 +10,8 @@ default, type and choices against the JAX parser. Boolean flags take
 
 The port runs supervised training, adversarial domain adaptation and
 ``--domain_shift`` evaluation (with ``--eval_scan_window``, int8 PTQ and
-``--export_model``);
+``--export_model``), on one device or data-parallel over ranks
+(``--num_devices``, ``--num_processes``);
 the CLI stops with ``SystemExit`` on the flags of paths still to be
 ported, and the flags only those paths read are inert
 (``cli.py::INERT_FLAGS``).
@@ -117,8 +118,12 @@ _FLAGS = (
     ("--host_augment", str2bool_auto, None, None,
      "True: --aug_type on the host (native C++, in the loader's threads); "
      "False or unset: on the device"),
-    ("--sync_bn", str2bool, True, None, _TODO),
-    ("--num_devices", int, None, None, "more than 1: " + _TODO),
+    ("--sync_bn", str2bool, True, None,
+     "data parallel: BN over the global batch (False = per-replica, "
+     "DataParallel-faithful; single-process only)"),
+    ("--num_devices", int, None, None,
+     "data parallel over this many devices, one rank each: cards --cuda "
+     "to --cuda + N - 1 (NCCL), or N CPU ranks under --cuda cpu (gloo)"),
     ("--spatial_devices", int, 1, None, "more than 1: " + _TODO),
     ("--d_pretrain_path", str, "", None,
      "DA: discriminator .pth to start from (its kind must match)"),
@@ -157,10 +162,17 @@ _FLAGS = (
     ("--resume", str, None, None,
      "continue from <save_model_path>/state (model, optimizer, "
      "accumulation, epoch)"),
-    ("--coordinator_address", str, None, None, _TODO),
-    ("--num_processes", int, None, None, _TODO),
-    ("--process_id", int, None, None, _TODO),
-    ("--eval_process_shard", str2bool, True, None, _TODO),
+    ("--coordinator_address", str, None, None,
+     "multi-process: the process group's host:port (or a tcp:// or "
+     "file:// URL; or torchrun's MASTER_ADDR/MASTER_PORT)"),
+    ("--num_processes", int, None, None,
+     "multi-process: the process count, one rank each (or torchrun's "
+     "WORLD_SIZE)"),
+    ("--process_id", int, None, None,
+     "multi-process: this process's rank (or torchrun's RANK)"),
+    ("--eval_process_shard", str2bool, True, None,
+     "data parallel: each rank evaluates its strided shard of the val set "
+     "and the int64 counts are summed (False: every rank the whole set)"),
     ("--data_cache", str, None, None,
      "decode each dataset once into memmaps under this directory"),
     ("--jsonl_log", str, None, None, "per-epoch JSONL log file"),

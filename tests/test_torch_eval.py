@@ -231,12 +231,9 @@ def test_domain_shift_cli_matches_jax(tmp_path, dataset):
 
 @pytest.mark.parametrize("flags", [
     ["--spatial_devices", "2"],
-    ["--coordinator_address", "localhost:1234"],
     ["--domain_adaptation", "True", "--iter_size", "2"],
     # int8 is ported; the multi-device stop stays
     ["--quantize_int8", "True", "--spatial_devices", "2"],
-    ["--num_processes", "2"],
-    ["--num_devices", "2"],
     # the augmentation and profile flags are ported; the stops stay
     ["--aug_type", "H-RP", "--host_augment", "True", "--profile_dir",
      "runs/trace", "--export_devices", "2"],
@@ -252,6 +249,32 @@ def test_cli_stops_on_unported_paths(flags):
         # (cli.py:603-611)
         argv[1] = "False"
         match = "--iter_size > 1 is supervised-only"
+    with pytest.raises(SystemExit, match=match):
+        cli.main(argv)
+
+
+@pytest.mark.parametrize("flags,match", [
+    # cards --cuda to --cuda + 1, never the CPU
+    (["--num_devices", "2", "--cuda", "0"], "CUDA is not available"),
+    (["--num_processes", "2"], "needs --coordinator_address"),
+    (["--coordinator_address", "localhost:1234"],
+     "needs --num_processes > 1"),
+    # JAX cli.py:164-207's refusals
+    (["--num_processes", "2", "--process_id", "0", "--coordinator_address",
+      "localhost:1234", "--sync_bn", "False"], "single-process only"),
+    (["--num_processes", "2", "--process_id", "0", "--coordinator_address",
+      "localhost:1234", "--num_devices", "4"], "cannot subset"),
+    (["--domain_shift", "False", "--num_devices", "2", "--sync_bn", "False",
+      "--batch_size", "3"], "divisible by the data-mesh size 2"),
+    (["--domain_shift", "False", "--num_devices", "2", "--batch_size", "3"],
+     "divisible by the process count 2"),
+])
+def test_cli_parallel_flags_reach_the_parallel_path(flags, match):
+    """The data-parallel flags are read: each of these stops where the
+    parallel path checks it, before any rank starts, with its reason."""
+    if "--cuda" in flags and torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    argv = ["--domain_shift", "True", "--cuda", "cpu"] + flags
     with pytest.raises(SystemExit, match=match):
         cli.main(argv)
 
