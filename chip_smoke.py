@@ -39,7 +39,10 @@ else runs (``compare_baseline``).
                   logits in fp32 and bf16, at the main path's shapes (B = 1
                   and 2) and at edge shapes (odd sizes, identity, h = 1, one
                   source or output pixel, downsampling, w = 1, C = 3, 32
-                  and 40, a ragged last band).
+                  and 40, a ragged last band); then its row windows (the
+                  height-sharded eval's) against the full kernel's rows
+                  and the windowed plain version, each launch
+                  synchronised and named.
 4. ce-kernel   -- the fused upsample+CE forward and backward kernels against
                   their plain version (loss, gradient) in fp32 and bf16, at
                   the train step's three head shapes and at edge shapes
@@ -228,6 +231,21 @@ else runs (``compare_baseline``).
                   port's sync BN timed against nn.BatchNorm2d,
                   torch.nn.SyncBatchNorm and the library's sync function;
                   the step ms of each mode beside the card.
+22. spatial    -- the height-sharded mesh (parallel/spatial.py), last: two
+                  gloo ranks share cuda:0 as data 1 x spatial 2, each on
+                  512 of the 1024 rows of a global batch of 4, fp32, TF32
+                  off: the sync train step and the DA step with the DW+BN
+                  and with the FC D against one process on the card, the
+                  ranks' parameters equal, 3 + 3 and 2 + 2 CE launches a
+                  rank by counters and profile; on each band the windowed
+                  upsample_argmax against the full kernel's rows (fp32,
+                  bf16) and the windowed CE kernels against their plain
+                  version, the shares' sum against the full kernel; 16
+                  bf16 eval batches of 8 (and 4 in fp32) in two bands
+                  against one process, 1 upsample_argmax a rank a batch;
+                  step ms, halo exchanges and peak memory a rank. The
+                  kernel phase runs the row windows too (first, middle
+                  and last bands, taps past both edges).
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record: each kernel's launches on its
@@ -244,7 +262,8 @@ PyTorch call computes a CatBottleneck, so ``library_ms`` stays null);
 the upsample+argmax and int8 conv records add their launches through the
 serve phase's artifacts (``serve_launches``), the upsample+argmax and CE
 records their launches in the parallel phase's ranks
-(``parallel_launches``). The last line is
+(``parallel_launches``) and in the spatial phase's
+(``spatial_launches``). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -538,10 +557,69 @@ def kernel_cases(device, ua):
     return n, bad, ua.LAUNCHES - before, max_err
 
 
+#: (logits shape, output size, bands, the bands launched): the row
+#: windows of the height-sharded eval (parallel/spatial.py), each band's
+#: output rows from its logits rows and the halo its taps reach
+WINDOW_CASES = (
+    ((2, 19, 64, 128), (512, 1024), 4, (0, 1, 3)),   # first, middle, last
+    ((2, 19, 128, 64), (1024, 512), 2, (0, 1)),      # the spatial phase's
+    ((1, 19, 13, 16), (100, 120), 4, (1, 2)),        # ragged taps
+    ((2, 3, 16, 32), (128, 256), 3, (1,)),           # the generic instance
+)
+
+
+def window_cases(device):
+    """This checkout's windowed upsample_argmax (``window=``) on the bands
+    of ``WINDOW_CASES`` x fp32, bf16 x ``KINDS``, each launch synchronised
+    and named before a fault is raised: each against the same rows of the
+    full kernel and against the windowed plain version, bit for bit.
+    Returns (cases, the ones that differ, launches, bands whose taps
+    reached past both of their band's edges)."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+    from dasemanticsegmentationaml_tpu_torch.ops.resize import (
+        RowWindow, window_rows)
+
+    before = ua.LAUNCHES
+    bad, n, crossing = [], 0, 0
+    for shape, out_hw, parts, launched in WINDOW_CASES:
+        h, out_h = shape[2], out_hw[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in KINDS:
+                x = logits_on(device, shape, n, kind, dtype)
+                full = ua.upsample_argmax(x, out_hw)
+                for s in launched:
+                    y0, y1 = s * out_h // parts, (s + 1) * out_h // parts
+                    lo, hi = window_rows(y0, y1, h, out_h)
+                    window = RowWindow(y0, y1, h, out_h, lo)
+                    crossing += (lo < y0 * h // out_h
+                                 and hi > -(-y1 * h // out_h))
+                    band = x[:, :, lo:hi].contiguous()
+                    name = (f"{shape} -> {out_hw} band {s} of {parts} "
+                            f"{window} {dtype} {kind}")
+                    try:
+                        got = ua.upsample_argmax(band, (y1 - y0, out_hw[1]),
+                                                 window=window)
+                        torch.cuda.synchronize()
+                    except Exception:
+                        log("kernel", f"windowed upsample_argmax failed on "
+                            f"{name}")
+                        raise
+                    plain = ua.upsample_argmax_reference(
+                        band, (y1 - y0, out_hw[1]), window)
+                    if not (torch.equal(got, full[:, y0:y1])
+                            and torch.equal(got, plain)):
+                        bad.append(name)
+                    n += 1
+    return n, bad, ua.LAUNCHES - before, crossing
+
+
 def phase_kernel(device):
     """The upsample+argmax kernel bit for bit against its plain version
     (torch.argmax: the first NaN, otherwise the first of the largest) on
-    every case; its counter rises by each call."""
+    every case, then its row windows against the full kernel's rows and
+    the windowed plain version; its counter rises by each call."""
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     n, bad, launches, max_err = kernel_cases(device, ua)
@@ -550,6 +628,17 @@ def phase_kernel(device):
     log("kernel", f"{n} cases bit-identical to the plain version "
         f"(fp32+bf16, random-normal+tie-heavy+non-finite); max "
         f"|kernel-plain| = {max_err}; LAUNCHES +{n}")
+    n, bad, launches, crossing = window_cases(device)
+    full = len(WINDOW_CASES) * 2 * len(KINDS)
+    check(not bad, f"windowed kernel != full rows or plain on {len(bad)} "
+          f"of {n} windows: {bad}")
+    check(launches == n + full, f"LAUNCHES rose by {launches}, expected "
+          f"{n} windows + {full} full calls")
+    check(crossing > 0, "no window's taps reached past both band edges")
+    log("kernel", f"{n} row windows (first, middle and last bands; "
+        f"{crossing} whose taps reach past both band edges) bit-identical "
+        f"to the full kernel's rows and to the windowed plain version, "
+        f"each launch synchronised")
     return max_err
 
 
@@ -4464,11 +4553,11 @@ def nccl_rank(init, out):
         dist.destroy_process_group()
 
 
-def spawn_parallel(target, args_of, n):
+def spawn_parallel(target, args_of, n, timeout=PARALLEL_TIMEOUT):
     """``n`` fresh processes running ``target(*args_of(i, store, out_i))``;
-    waits for them under PARALLEL_TIMEOUT and returns their saved
-    results. A process that fails, or outlives the timeout (it is killed),
-    fails the phase."""
+    waits for them under ``timeout`` and returns their saved results. A
+    process that fails, or outlives the timeout (it is killed), fails the
+    phase."""
     import multiprocessing
 
     import torch
@@ -4481,7 +4570,7 @@ def spawn_parallel(target, args_of, n):
                  for i in range(n)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.join(max(1.0, deadline - time.monotonic()))
         hung = [i for i, p in enumerate(procs) if p.is_alive()]
@@ -4490,7 +4579,7 @@ def spawn_parallel(target, args_of, n):
                 p.kill()
                 p.join()
         check(not hung, f"processes {hung} still running after "
-              f"{PARALLEL_TIMEOUT} s")
+              f"{timeout} s")
         codes = [p.exitcode for p in procs]
         check(codes == [0] * n, f"exit codes {codes}")
         return [torch.load(o, weights_only=False) for o in outs]
@@ -4792,6 +4881,398 @@ def phase_parallel(device, card):
     return launches
 
 
+#: the spatial phase's global batch (fp32): 4 images at 1024x512 (height
+#: 1024, so 16 rows a rank at stride 32 over two bands)
+SPATIAL_SHAPE = (4, 3, 1024, 512)
+#: seconds the spatial phase's rank processes may take
+SPATIAL_TIMEOUT = 600
+#: eval batches the spatial phase also runs in fp32 (TF32 off)
+SPATIAL_FP32_BATCHES = 4
+#: how far the bands' bf16 labels may agree less with one process's than
+#: one process's own do when each batch runs as two of 4 (0.9843 against
+#: the bands' 0.9828 on an H100: bf16 rounding of other conv shapes)
+SPATIAL_BF16_SLACK = 0.005
+
+
+def spatial_inputs(seed=23):
+    """The spatial phase's global batch: images, labels (the first two 5%
+    ignore, the last two 40%) and target images."""
+    rng = np.random.default_rng(seed)
+    b, _, h, w = SPATIAL_SHAPE
+    x = rng.standard_normal(SPATIAL_SHAPE).astype(np.float32)
+    frac = np.repeat([0.05, 0.40], b // 2)[:, None, None]
+    y = np.where(rng.random((b, h, w)) < frac, 255,
+                 rng.integers(0, 19, (b, h, w))).astype(np.int32)
+    xt = rng.standard_normal(SPATIAL_SHAPE).astype(np.float32)
+    return x, y, xt
+
+
+def spatial_gather(mesh, t):
+    """The whole tensor of the bands ``t`` of the spatial group (dim 2 of
+    (B, C, H, W), dim 1 of (B, H, W)), on ``t``'s device."""
+    import torch
+    import torch.distributed as dist
+
+    on = t.detach().to(mesh.device).contiguous()
+    parts = [torch.empty_like(on) for _ in range(mesh.spatial_size)]
+    dist.all_gather(parts, on, group=mesh.spatial_group)
+    return torch.cat(parts, 2 if t.dim() == 4 else 1).to(t.device)
+
+
+def spatial_windows(model, mesh, xs, ys):
+    """On this rank's band: the eval model's main head (fp32 and bf16
+    autocast) through the windowed upsample_argmax against the same rows
+    of the full kernel on the gathered logits, bit for bit; the windowed
+    CE kernel (fp32) against its windowed plain version, and the bands'
+    shares summed against the full kernel's loss."""
+    import torch
+    import torch.distributed as dist
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
+
+    out = {}
+    hb, w = ys.shape[1], ys.shape[2]
+    s = mesh.spatial_index
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.no_grad(), mesh.banded(), (
+                torch.autocast("cuda", dtype=dtype)
+                if dtype == torch.bfloat16 else contextlib.nullcontext()):
+            f = model.features(xs)[0].contiguous()
+            win, window = mesh.window(f, hb)
+        full = ua.upsample_argmax(spatial_gather(mesh, f), (hb * 2, w))
+        got = ua.upsample_argmax(win, (hb, w), window=window)
+        torch.cuda.synchronize()
+        h_band = f.shape[2]
+        out[("argmax", str(dtype))] = (
+            bool(torch.equal(got, full[:, window.y0:window.y1])),
+            window.base < s * h_band
+            or window.base + win.shape[2] > (s + 1) * h_band)
+        if dtype == torch.float32:
+            n_valid = mesh.valid_count(ys, 19)
+            value = {}
+            for name, fn in (("kernel", fc.cross_entropy_upsampled),
+                             ("plain", fc.cross_entropy_upsampled_reference)):
+                x = win.detach().requires_grad_()
+                share = fn(x, ys, (hb, w), 255, window=window,
+                           n_valid=n_valid)
+                (grad,) = torch.autograd.grad(share, x)
+                value[name] = (share.detach(), grad)
+            (k, kg), (p, pg) = value["kernel"], value["plain"]
+            total = k.clone().reshape(1).to(mesh.device)
+            dist.all_reduce(total, group=mesh.spatial_group)
+            whole = fc.cross_entropy_upsampled(
+                spatial_gather(mesh, f), spatial_gather(mesh, ys),
+                (hb * 2, w))
+            out["ce"] = dict(
+                loss_err=abs(k.item() - p.item()) / abs(p.item()),
+                grad_err=((kg - pg).abs().max()
+                          / pg.abs().max()).item(),
+                sum_err=abs(total.item() - whole.item()) / abs(whole.item()))
+    return out
+
+
+def spatial_rank(rank, world, init, out, device="cuda:0"):
+    """One of two gloo ranks sharing cuda:0 as a 1 x 2 spatial mesh
+    (spatial phase): the sync train step and the DA steps (DW+BN D, FC D)
+    on its band of the global batch, each under the profiler with the CE
+    counters reset before and read after, then timed, with its halo
+    exchanges and peak memory; the windowed kernels on its band; and its
+    band of 16 prepared bf16 eval batches of 8 through eval_counts and
+    allreduce_counts, with its predictions."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import (
+        upsample_argmax as ua)
+    from dasemanticsegmentationaml_tpu_torch.parallel.distributed import (
+        allreduce_counts, destroy, initialize)
+    from dasemanticsegmentationaml_tpu_torch.parallel.mesh import (
+        make_sharded_da_step, make_sharded_train_step)
+    from dasemanticsegmentationaml_tpu_torch.parallel.spatial import (
+        create_mesh_spatial)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import (
+        eval_counts, predict)
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize(init, world, rank, backend="gloo", device=device)
+    try:
+        mesh = create_mesh_spatial(1, world)
+        x, y, xt = spatial_inputs()
+        xs, ys, xts = mesh.shard(*(torch.from_numpy(a).to(device)
+                                   for a in (x, y, xt)))
+        res = {}
+
+        def run(key, step, args, iters):
+            reset_ce_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, prof = profiled(lambda: step(*args))
+            launches = ce_launches()
+            peak = torch.cuda.max_memory_allocated()
+            n0, t0 = mesh.exchanges, mesh.exchange_seconds
+            ms = cuda_ms(lambda: step(*args), iters, warmup=1)
+            calls = iters + 1
+            res[key].update(
+                launches=launches, seen=ce_seen(prof), peak=peak, ms=ms,
+                exchanges=(mesh.exchanges - n0) / calls,
+                exchange_ms=(mesh.exchange_seconds - t0) * 1e3 / calls)
+
+        with fp32_math():
+            # each step's first call is held against one process; the
+            # calls after it are profiled and timed
+            g = seeded_g(device)
+            step = make_sharded_train_step(g, optimizers(g), num_classes=19,
+                                           spatial=mesh)
+            res["train"] = dict(loss=float(step(xs, ys)), state=cpu_state(g),
+                                sums=param_sums(g))
+            run("train", step, (xs, ys), 3)
+            for name, kind in (("dwbn", (True, True)),
+                               ("fc", (False, False))):
+                g, d = seeded_g(device), seeded_d(device, kind)
+                step = make_sharded_da_step(g, d, *optimizers(g, d),
+                                            num_classes=19, lambda_adv=1e-3,
+                                            spatial=mesh)
+                m = step(xs, ys, xts)
+                res[("da", name)] = dict(
+                    metrics={k: float(v) for k, v in m.items()},
+                    g=cpu_state(g), d=cpu_state(d), sums=param_sums(g),
+                    dsums=param_sums(d))
+                run(("da", name), step, (xs, ys, xts), 2)
+            model = mesh.convert(seeded_g(device).eval())
+            res["windows"] = spatial_windows(model, mesh, xs, ys)
+        batches = eval_batches(device)
+        ua.LAUNCHES = 0
+        hist, correct, total = eval_counts(model, batches, 19,
+                                           prepare=lambda b: b,
+                                           device=device,
+                                           amp_dtype=torch.bfloat16,
+                                           spatial=mesh)
+        launches = ua.LAUNCHES
+        hist, correct, total = allreduce_counts(hist, correct, total)
+        ua.LAUNCHES = 0
+        preds, prof = profiled(lambda: [
+            predict(model, mesh.shard(images)[0], True, torch.bfloat16,
+                    spatial=mesh).to(torch.uint8).cpu()
+            for images, _ in batches])
+        seen = kernel_launches_seen(prof, {"upsample_argmax": (
+            ("upsample_argmax_band_kernel",),)})
+        res["eval"] = dict(hist=hist.cpu(), correct=int(correct),
+                           total=total, launches=launches,
+                           predict_launches=ua.LAUNCHES,
+                           seen=sum(seen.values()), batches=len(batches),
+                           preds=torch.stack(preds))
+        # fp32 (TF32 off) on the first SPATIAL_FP32_BATCHES of them
+        with fp32_math():
+            fp32 = [(images.float(), labels) for images, labels
+                    in batches[:SPATIAL_FP32_BATCHES]]
+            hist, correct, total = allreduce_counts(*eval_counts(
+                model, fp32, 19, prepare=lambda b: b, device=device,
+                spatial=mesh))
+            preds = [predict(model, mesh.shard(images)[0], True,
+                             spatial=mesh).to(torch.uint8).cpu()
+                     for images, _ in fp32]
+        res["eval_fp32"] = dict(hist=hist.cpu(), total=total,
+                                preds=torch.stack(preds))
+        torch.save(res, out)
+    finally:
+        destroy()
+
+
+def phase_spatial(device, card):
+    """The height-sharded mesh (parallel/spatial.py): two gloo ranks share
+    cuda:0 as data 1 x spatial 2, each on 512 of the 1024 rows of a global
+    batch of 4 (fp32, TF32 off, full-width BiSeNet-STDC813): one sync-BN
+    train step and one DA step with the DW+BN D and one with the FC D,
+    each held against one process on the card on the global batch (train:
+    loss rtol 1e-4, global l2 < 0.02 of the update, each leaf < 0.1,
+    statistics < 0.02; DA: the four losses rtol 1e-4, G the same with
+    statistics 0.3 a leaf and 0.05 global, D global l2 < 0.25 without the
+    BN-fed biases); the ranks' parameters equal bit for bit; 3 + 3 CE
+    launches a rank a train step and 2 + 2 a DA step by the counters and
+    by the profile. The windowed kernels on each rank's band: upsample_
+    argmax against the same rows of the full kernel (fp32, bf16, bit for
+    bit; a band's taps reach past its logits rows), the CE kernels against
+    their windowed plain version (loss 1e-5, gradient 1e-4 of its max)
+    and the bands' shares summed against the full kernel's loss (1e-5).
+    Eval: 16 prepared bf16 batches of 8 at 512x1024 in two bands against
+    one process: mIoU |Δ| <= 1e-3; labels equal on no fewer pixels than
+    one process's own labels with each batch run as two of 4 (bf16
+    rounding of other conv shapes: cuDNN takes other algorithms) less
+    ``SPATIAL_BF16_SLACK``; the first 4 batches in fp32 (TF32 off): mIoU
+    |Δ| <= 1e-3, labels equal on >= 0.999 of pixels; 1 upsample_argmax a
+    rank a batch by the counter and the profile. Logs step ms a rank,
+    the halo exchanges a step (count, host ms) and peak memory a rank
+    against one process. Returns the kernels' launches in the ranks."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+    from dasemanticsegmentationaml_tpu_torch.ops.metrics import per_class_iou
+    from dasemanticsegmentationaml_tpu_torch.train.adversarial import (
+        make_da_step)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import (
+        eval_counts, predict)
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    t0 = time.perf_counter()
+    ranks = spawn_parallel(spatial_rank, lambda i, store, out:
+                           (i, 2, store, out, str(device)), 2,
+                           timeout=SPATIAL_TIMEOUT)
+    t_ranks = time.perf_counter() - t0
+    x, y, xt = (torch.from_numpy(a).to(device) for a in spatial_inputs())
+    init = cpu_state(seeded_g("cpu"))
+    launches = {"fused_ce_fwd": 0, "fused_ce_bwd": 0, "upsample_argmax": 0}
+    peaks = {}
+    with fp32_math():
+        got = [r["train"] for r in ranks]
+        check(got[0]["sums"] == got[1]["sums"],
+              "spatial train: the ranks' parameters differ")
+        for r, g in enumerate(got):
+            check(g["launches"] == {"fused_ce_fwd": 3, "fused_ce_bwd": 3}
+                  and g["seen"] == g["launches"],
+                  f"spatial train rank {r}: CE launches {g['launches']}, "
+                  f"profile {g['seen']}")
+            for name, n in g["launches"].items():
+                launches[name] += n
+        g = seeded_g(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = float(make_train_step(g, optimizers(g))(x, y))
+        peaks["train"] = torch.cuda.max_memory_allocated()
+        check(abs(got[0]["loss"] - want) <= 1e-4 * abs(want),
+              f"spatial train: loss {got[0]['loss']} against {want}")
+        log("spatial", f"train: loss {got[0]['loss']:.7f} against one "
+            f"process's {want:.7f}; " + held_to(got[0]["state"],
+                                                cpu_state(g), init, "rank 0"))
+        bn_fed = {f"conv{i}_{s}.bias" for i in range(1, 5) for s in "dp"}
+        for name, kind in (("dwbn", (True, True)), ("fc", (False, False))):
+            got = [r[("da", name)] for r in ranks]
+            check(got[0]["sums"] == got[1]["sums"]
+                  and got[0]["dsums"] == got[1]["dsums"]
+                  and got[0]["metrics"] == got[1]["metrics"],
+                  f"spatial da {name}: the ranks differ")
+            for r, g in enumerate(got):
+                check(g["launches"] == {"fused_ce_fwd": 2, "fused_ce_bwd": 2}
+                      and g["seen"] == g["launches"],
+                      f"spatial da {name} rank {r}: CE launches "
+                      f"{g['launches']}, profile {g['seen']}")
+                for key, n in g["launches"].items():
+                    launches[key] += n
+            g, d = seeded_g(device), seeded_d(device, kind)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m = make_da_step(g, d, *optimizers(g, d), lambda_adv=1e-3)(
+                x, y, xt)
+            want = {k: float(v) for k, v in m.items()}
+            peaks[("da", name)] = torch.cuda.max_memory_allocated()
+            for key, value in want.items():
+                check(abs(got[0]["metrics"][key] - value) <= 1e-4 * abs(value),
+                      f"spatial da {name} {key}: {got[0]['metrics'][key]} "
+                      f"against {value}")
+            log("spatial", f"da {name}: {got[0]['metrics']} against one "
+                f"process's {want}; " + held_to(
+                    got[0]["g"], cpu_state(g), init, "G", rs_tol=0.3,
+                    rs_global=0.05) + "; " + held_to(
+                    got[0]["d"], cpu_state(d), cpu_state(seeded_d("cpu", kind)),
+                    "D", g_tol=0.25, leaf_tol=None, rs_tol=0.3,
+                    rs_global=0.05, skip=bn_fed if kind == (True, True)
+                    else ()))
+    for r, rank in enumerate(ranks):
+        w = rank["windows"]
+        for dtype in ("torch.float32", "torch.bfloat16"):
+            equal, crossing = w[("argmax", dtype)]
+            check(equal, f"rank {r}: the windowed upsample_argmax differs "
+                  f"from the full kernel's rows ({dtype})")
+            check(crossing, f"rank {r}: the window's taps stayed inside "
+                  f"its band ({dtype})")
+        ce = w["ce"]
+        check(ce["loss_err"] <= 1e-5 and ce["grad_err"] <= 1e-4
+              and ce["sum_err"] <= 1e-5,
+              f"rank {r}: the windowed CE kernel: {ce}")
+        log("spatial", f"rank {r}: windowed upsample_argmax equals the full "
+            f"kernel's rows (fp32, bf16; taps past the band's logits "
+            f"rows); windowed CE against its plain version: loss "
+            f"{ce['loss_err']:.2e}, gradient {ce['grad_err']:.2e} of its "
+            f"max; the shares' sum against the full kernel "
+            f"{ce['sum_err']:.2e}")
+    model = seeded_g(device).eval()
+    batches = eval_batches(device)
+    hist, correct, total = eval_counts(model, batches, 19,
+                                       prepare=lambda b: b, device=device,
+                                       amp_dtype=torch.bfloat16)
+
+    def labels_of(batches, amp_dtype, parts=1):
+        """One process's labels, each batch in ``parts`` pieces."""
+        return torch.stack([torch.cat([
+            predict(model, piece, True, amp_dtype).to(torch.uint8).cpu()
+            for piece in images.chunk(parts)]) for images, _ in batches])
+
+    preds = labels_of(batches, torch.bfloat16)
+    # the yardstick: one process's own labels when only the batch's conv
+    # shapes change (each batch as two of 4), nothing banded
+    yard = float((labels_of(batches, torch.bfloat16, 2) == preds)
+                 .float().mean())
+    miou = float(per_class_iou(hist.cpu()).mean())
+    ev = [rank["eval"] for rank in ranks]
+    got_miou = float(per_class_iou(ev[0]["hist"]).mean())
+    same = float((torch.cat([e["preds"] for e in ev], 2) == preds)
+                 .float().mean())
+    check(abs(got_miou - miou) <= 1e-3 and ev[0]["total"] == total,
+          f"spatial eval: mIoU {got_miou} against {miou}")
+    # in bf16 another conv shape flips labels of these seeded weights in
+    # one process too: the bands may not flip more than that, with half a
+    # percent to spare (fp32 is held to 0.999 below)
+    check(same >= yard - SPATIAL_BF16_SLACK,
+          f"spatial eval: labels equal on {same}, one process with other "
+          f"conv shapes {yard}")
+    with fp32_math():
+        fp32 = [(images.float(), labels) for images, labels
+                in batches[:SPATIAL_FP32_BATCHES]]
+        hist32, _, total32 = eval_counts(model, fp32, 19,
+                                         prepare=lambda b: b, device=device)
+        preds32 = labels_of(fp32, None)
+    ev32 = [rank["eval_fp32"] for rank in ranks]
+    miou32 = float(per_class_iou(hist32.cpu()).mean())
+    got_miou32 = float(per_class_iou(ev32[0]["hist"]).mean())
+    same32 = float((torch.cat([e["preds"] for e in ev32], 2) == preds32)
+                   .float().mean())
+    check(abs(got_miou32 - miou32) <= 1e-3 and ev32[0]["total"] == total32,
+          f"spatial eval fp32: mIoU {got_miou32} against {miou32}")
+    check(same32 >= 0.999, f"spatial eval fp32: labels equal on {same32}")
+    log("spatial", f"eval fp32 (TF32 off), {SPATIAL_FP32_BATCHES} batches: "
+        f"mIoU {got_miou32:.6f} against one process's {miou32:.6f}, labels "
+        f"equal on {same32:.6f}")
+    for r, e in enumerate(ev):
+        check(e["launches"] == e["predict_launches"] == e["seen"]
+              == e["batches"] == 16,
+              f"rank {r}: {e['launches']} / {e['predict_launches']} "
+              f"upsample_argmax launches (profile {e['seen']}) for "
+              f"{e['batches']} batches")
+        launches["upsample_argmax"] += e["launches"]
+    log("spatial", f"eval: two bands' int64 counts over 16 bf16 batches of "
+        f"8: mIoU {got_miou:.6f} against one process's {miou:.6f}, "
+        f"precision {ev[0]['correct'] / total:.6f} against "
+        f"{int(correct) / total:.6f}; labels equal on {same:.6f} (one "
+        f"process's own labels with each batch as two of 4: {yard:.6f})")
+    for key, name in (("train", "train step"), (("da", "dwbn"),
+                                                "DA step (DW+BN D)"),
+                      (("da", "fc"), "DA step (FC D)")):
+        rk = ranks[0][key]
+        log("spatial", f"{card} | two gloo ranks on one card, fp32, 512 of "
+            f"1024 rows a rank, batch 4: {name} {rk['ms']:.2f} ms a rank "
+            f"(rank 0, CUDA events); {rk['exchanges']:.0f} halo exchanges "
+            f"a step, {rk['exchange_ms']:.2f} host ms in them; peak "
+            f"{rk['peak'] / 2**30:.3f} GiB a rank against one process's "
+            f"{peaks[key] / 2**30:.3f} GiB")
+    log("spatial", f"passed: ranks {t_ranks:.1f} s, in all "
+        f"{time.perf_counter() - t0:.1f} s; launches in the ranks "
+        f"{launches}")
+    return launches
+
+
 def main(argv=None):
     import argparse
     import concurrent.futures as futures
@@ -4897,6 +5378,7 @@ def main(argv=None):
     # ranks profile in fresh processes), and with it before the timing
     # phases a CatBottleneck profile there saw no kernel in three tries
     parallel_launches = phase_parallel(device, card)
+    spatial_launches = phase_spatial(device, card)
 
     argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
     ce_shape, ce_hw = CE_MAIN_CASES[0]
@@ -4937,7 +5419,8 @@ def main(argv=None):
                       device_ms=argmax[("kernel", "device")],
                       plain_device_ms=argmax[("plain", "device")],
                       serve_launches=serve_launches["upsample_argmax"],
-                      parallel_launches=parallel_launches["upsample_argmax"])
+                      parallel_launches=parallel_launches["upsample_argmax"],
+                      spatial_launches=spatial_launches["upsample_argmax"])
         ] + [
         kernel_record(f"fused_ce_{part}", CE_SOURCE, CE_REPLACES,
                       train_launches[f"fused_ce_{part}"],
@@ -4946,7 +5429,8 @@ def main(argv=None):
                       bound_ce(ce_shape, ce_hw, 2, n_valid, part == "bwd"),
                       device_ms=ce[(part, "kernel", "device")],
                       plain_device_ms=ce[(part, "plain", "device")],
-                      parallel_launches=parallel_launches[f"fused_ce_{part}"])
+                      parallel_launches=parallel_launches[f"fused_ce_{part}"],
+                      spatial_launches=spatial_launches[f"fused_ce_{part}"])
         for part in ("fwd", "bwd")] + [
         kernel_record(f"fused_cat_s{s}", STDC_SOURCE, STDC_REPLACES[s],
                       stdc_launches[f"fused_cat_s{s}"], stdc_errs[s],

@@ -75,9 +75,25 @@ rank 0 writes checkpoints, TensorBoard, the JSONL log, the profile and
 the export, and prints; the parent of ``--num_devices`` ranks returns
 rank 0's result, and a rank that fails ends the others.
 
-The height-sharded mesh (``--spatial_devices > 1``) and the multi-device
-exports (``--export_devices > 1``, ``--export_spatial``) stop with
-``SystemExit("...: not ported yet: see ROADMAP.md")``; ``--iter_size > 1``
+The height-sharded mesh (JAX cli.py:164-207, :408-433;
+``parallel/spatial.py``): ``--spatial_devices S`` with ``--num_devices N``
+spawns the N ranks as a (N / S) data × S spatial mesh. Rank (d, s) loads
+data shard d's rows of every global batch, prepares and augments those
+whole images (the draws keyed by the global row), and keeps rows ``[s H
+/ S, (s + 1) H / S)`` of each; the train and DA steps run banded, with
+sync BN over every rank. Validation batches are whole on every rank:
+one that the data size divides is counted band by band, another once,
+by rank 0, and the int64 counts are summed. Like JAX it stops on
+``--num_processes > 1``, on an S that does not divide N, on a height
+(``actual_hw``) that ``check_spatial_height`` refuses and on ``--sync_bn
+False``, with JAX's words. ``--eval_scan_window`` replays windows only
+where the mesh's collectives can be captured (NCCL) and otherwise runs
+eagerly, with a note; ``--quantize_int8`` evaluates the int8 model whole
+on every rank (the banded int8 forward is not ported).
+
+The multi-device exports (``--export_devices > 1``, ``--export_spatial``)
+stop with ``SystemExit("...: not ported yet: see ROADMAP.md")``;
+``--iter_size > 1``
 with ``--domain_adaptation`` and ``--export_batches`` with
 ``--export_spatial`` stop with the JAX package's reasons, and so do the
 data-parallel flags JAX refuses. ``--use_gpu`` (``INERT_FLAGS``) is
@@ -92,7 +108,7 @@ Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
           --root_target <cityscapes> --root <cityscapes> --cuda 0 \
           [--aug_type H-RP [--host_augment True] [--augment_labels True]]
       python -m dasemanticsegmentationaml_tpu_torch.cli --root <cityscapes> \
-          --num_devices 4 --cuda 0 [--sync_bn False]
+          --num_devices 4 --cuda 0 [--sync_bn False | --spatial_devices 2]
       python -m dasemanticsegmentationaml_tpu_torch.cli --domain_shift True \
           --root <cityscapes> --pretrain_path best.pth --cuda 0 \
           [--eval_scan_window 8] [--quantize_int8 True \
@@ -122,6 +138,8 @@ from .parallel.distributed import (assert_same_across_processes, barrier,
                                    process_rank)
 from .parallel.mesh import (check_per_replica_batch, make_sharded_da_step,
                             make_sharded_train_step, rank0_buffers)
+from .parallel.spatial import (check_spatial_height, create_mesh_spatial,
+                               keep_band)
 from .train.adversarial import make_da_step, train_da
 from .train.evaluate import EvalGraphs, evaluate
 from .train.optim import GradientAccumulator, make_optimizer
@@ -148,6 +166,15 @@ INERT_FLAGS = {
     "use_gpu": "--use_gpu: accepted for CLI compatibility; --cuda picks "
                "the device",
 }
+#: printed when --eval_scan_window meets a spatial mesh over gloo
+SPATIAL_EAGER_NOTE = (
+    "--eval_scan_window with --spatial_devices: the mesh's collectives run "
+    "over gloo here and cannot be captured in a CUDA graph; evaluating "
+    "eagerly (the counts are the same)")
+#: printed when --quantize_int8 meets a spatial mesh
+SPATIAL_INT8_NOTE = (
+    "--quantize_int8 with --spatial_devices: the int8 model is evaluated "
+    "whole on every rank (the banded int8 forward is not ported)")
 #: JAX cli.py:503-512
 EXPORT_BUNDLE_SPATIAL = (
     "--export_batches and --export_spatial cannot be combined: the bundle "
@@ -189,8 +216,6 @@ def check_ported(args) -> None:
             args.export_devices > 1,
         "--export_spatial (the height-sharded artifact)":
             args.export_spatial,
-        "--spatial_devices > 1 (the height-sharded mesh)":
-            args.spatial_devices > 1,
     }
     for what, requested in unported.items():
         if requested:
@@ -383,12 +408,38 @@ def multi_process(args) -> bool:
             or int(os.environ.get("WORLD_SIZE", "1")) > 1)
 
 
+def check_spatial(args) -> None:
+    """JAX ``build_mesh``'s refusals of ``--spatial_devices > 1``
+    (cli.py:164-207), in its order and words."""
+    spatial = args.spatial_devices
+    if multi_process(args):
+        raise SystemExit("--spatial_devices is single-process only")
+    total = args.num_devices or 1
+    if total % spatial:
+        raise SystemExit(f"--spatial_devices {spatial} "
+                         f"must divide the device count {total}")
+    try:
+        check_spatial_height(actual_hw(args)[0], spatial)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if not args.sync_bn:
+        raise SystemExit("--sync_bn False (per-replica BN) is not "
+                         "supported with --spatial_devices")
+
+
 def check_parallel(args) -> int:
     """The rank count of the run, after JAX's refusals (``build_mesh``,
     JAX cli.py:164-207, and :147-159, :532, :595): per-replica BN is
     single-process only and needs the batch divisible by the ranks;
     ``--num_devices`` cannot take a subset of a multi-process run; each
-    rank loads batch / ranks samples."""
+    rank loads batch / ranks samples (batch / data size on a spatial
+    mesh, ``check_spatial``)."""
+    if args.spatial_devices > 1:
+        check_spatial(args)
+        world = args.num_devices
+        if not args.domain_shift:
+            local_batch_size(args.batch_size, world // args.spatial_devices)
+        return world
     if multi_process(args):
         world = args.num_processes or int(os.environ.get("WORLD_SIZE", "1"))
         if world <= 1:
@@ -527,7 +578,24 @@ def run(args, device: torch.device):
 
 def _run(args, device, rank: int, world: int):
     pin = device.type == "cuda"
-    if world > 1:
+    spatial = None
+    if args.spatial_devices > 1:
+        spatial = create_mesh_spatial(world // args.spatial_devices,
+                                      args.spatial_devices)
+        data_rank, data_size = spatial.data_index, spatial.data_size
+        print(f"spatial mesh: {data_size} data x {args.spatial_devices} "
+              f"spatial ranks ({dist.get_backend()}), sync BN; "
+              f"{args.batch_size // data_size} of each batch's "
+              f"{args.batch_size} rows a data shard, "
+              f"{actual_hw(args)[0] // args.spatial_devices} of "
+              f"{actual_hw(args)[0]} image rows a rank")
+        if args.eval_scan_window > 1 and not spatial.capturable:
+            print(SPATIAL_EAGER_NOTE)
+        if args.quantize_int8 and args.domain_shift:
+            print(SPATIAL_INT8_NOTE)
+    else:
+        data_rank, data_size = rank, world
+    if world > 1 and spatial is None:
         print(f"data parallel: {world} ranks ({dist.get_backend()}), "
               f"--sync_bn {args.sync_bn}, {args.batch_size // world} of "
               f"each batch's {args.batch_size} rows a rank")
@@ -599,7 +667,7 @@ def _run(args, device, rank: int, world: int):
     # int8 calibration reads loader_val, whole on every rank; evaluation
     # reads a strided shard a rank whose counts are summed (JAX
     # cli.py:228-247, 391-397)
-    eval_sharded = world > 1 and args.eval_process_shard
+    eval_sharded = world > 1 and args.eval_process_shard and spatial is None
     loader_val_eval = Loader(
         Subset(val_ds, list(range(rank, len(val_ds), world))),
         args.eval_batch_size, num_workers=args.num_workers, pin_memory=pin,
@@ -613,25 +681,40 @@ def _run(args, device, rank: int, world: int):
     load_pretrain(model, args.pretrain_path)
     amp_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
 
-    def make_prepare(aug_type, remap):
+    def make_prepare(aug_type, remap, sharded=True):
         """prepare(batch, epoch, it): the batch on the device, augmented
         by ``aug_type`` with the draws of (seed, epoch, it), as JAX folds
-        epoch and step into its key (cli.py:415-432)."""
+        epoch and step into its key (cli.py:415-432); on a spatial mesh,
+        ``sharded``: this rank's band of it."""
         def prepare(batch, epoch=0, it=0):
             images, labels = batch
             generator = (batch_generator(args.seed, epoch, it, device)
                          if aug_type else None)
             # a rank's rows of the global batch take those rows' draws
-            rows = ((rank * images.shape[0], args.batch_size)
-                    if aug_type and world > 1 else None)
-            return prepare_batch(images, labels, device=device, remap=remap,
-                                 dtype=amp_dtype or torch.float32,
-                                 aug_type=aug_type, generator=generator,
-                                 augment_labels=args.augment_labels,
-                                 rows=rows)
+            rows = ((data_rank * images.shape[0], args.batch_size)
+                    if aug_type and data_size > 1 else None)
+            images, labels = prepare_batch(
+                images, labels, device=device, remap=remap,
+                dtype=amp_dtype or torch.float32, aug_type=aug_type,
+                generator=generator, augment_labels=args.augment_labels,
+                rows=rows)
+            if spatial is not None and sharded:
+                # this rank's band of the prepared whole images
+                images, labels = (
+                    keep_band(t, spatial.spatial_index,
+                              spatial.spatial_size).contiguous()
+                    for t in (images, labels))
+            return images, labels
         return prepare
 
-    prepare_val = make_prepare(None, remap)
+    # validation batches stay whole: eval counts each rank's band of them
+    prepare_val = make_prepare(None, remap, sharded=False)
+    # the banded eval, but for an int8 model (evaluated whole)
+    spatial_eval = (None if spatial is None
+                    or (args.domain_shift and args.quantize_int8)
+                    else spatial)
+    if spatial_eval is not None:
+        spatial.convert(model)
 
     # --eval_scan_window: the windows captured by the first evaluation are
     # replayed by the later ones (each validation of training)
@@ -646,7 +729,8 @@ def _run(args, device, rank: int, world: int):
                               amp_dtype=amp_dtype,
                               scan_window=args.eval_scan_window,
                               fetch_timeout=args.fetch_timeout,
-                              graphs=graphs, cross_process_sum=eval_sharded)
+                              graphs=graphs, cross_process_sum=eval_sharded,
+                              spatial=spatial_eval)
         # the best-checkpoint decision must not part (JAX cli.py:457-461)
         assert_same_across_processes(result[1], "val mIoU")
         return result
@@ -685,11 +769,12 @@ def _run(args, device, rank: int, world: int):
                     args, model, source_ds, target_ds,
                     make_prepare(None if host_aug else args.aug_type, True),
                     make_prepare(None, False), evaluate_fn, amp_dtype,
-                    device, profiler, rank, world)
+                    device, profiler, rank, world, spatial)
             else:
                 max_miou = _train_supervised(
                     args, model, train_ds, make_prepare(aug_train, remap),
-                    evaluate_fn, amp_dtype, pin, profiler, rank, world)
+                    evaluate_fn, amp_dtype, pin, profiler, rank, world,
+                    spatial)
         finally:
             if profiler is not None:
                 profiler.close()
@@ -705,19 +790,29 @@ def _writer_and_logger(args, rank: int):
             JsonlLogger(args.jsonl_log if rank == 0 else None))
 
 
+def _data_shard(rank: int, world: int, spatial):
+    """(the rank's data shard, the shard count): the rank's own on a data
+    mesh, its data index on a spatial one."""
+    if spatial is not None:
+        return spatial.data_index, spatial.data_size
+    return rank, world
+
+
 def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
                       amp_dtype, pin, profiler, rank: int = 0,
-                      world: int = 1) -> float:
+                      world: int = 1, spatial=None) -> float:
     """The supervised branch (JAX cli.py:713-763; reference
     train.py:465-470,501-509). SGD takes weight decay 1e-4, hard-coded as
     the reference does (train.py:504), not ``--weight_decay`` (the DA
     value); Adam and RMSprop take none. Over ranks: each loads its slice
-    of the global batch and runs the sharded step (JAX cli.py:725-750)."""
+    of the global batch and runs the sharded step (JAX cli.py:725-750);
+    on a spatial mesh its data shard's, banded."""
+    shard, shards = _data_shard(rank, world, spatial)
     loader_train = Loader(train_ds, args.batch_size, shuffle=True,
                           seed=args.seed, drop_last=True,
                           num_workers=args.num_workers, pin_memory=pin,
                           worker_timeout=args.worker_timeout,
-                          process_id=rank, process_count=world)
+                          process_id=shard, process_count=shards)
     wd = {"sgd": 1e-4}.get(args.optimizer, 0.0)
     optimizer = make_optimizer(
         args.optimizer, trainable_parameters(model, args.use_conv_last),
@@ -730,7 +825,7 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
         step = make_sharded_train_step(
             model, optimizer, num_classes=args.num_classes,
             sync_bn=args.sync_bn, ohem=args.ohem, accumulator=accumulator,
-            amp_dtype=amp_dtype)
+            amp_dtype=amp_dtype, spatial=spatial)
     else:
         step = make_train_step(model, optimizer, accumulator=accumulator,
                                ohem=args.ohem, amp_dtype=amp_dtype)
@@ -749,7 +844,8 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
 
 def _train_da(args, model, source_ds, target_ds, prepare_source,
               prepare_target, evaluate_fn, amp_dtype, device,
-              profiler, rank: int = 0, world: int = 1) -> float:
+              profiler, rank: int = 0, world: int = 1,
+              spatial=None) -> float:
     """The DA branch (JAX cli.py:601-711; reference train.py:134-299):
     GTA5 source batches (raw ids remapped, augmented by ``--aug_type``)
     shuffled with ``seed``, Cityscapes target batches shuffled with
@@ -758,16 +854,17 @@ def _train_da(args, model, source_ds, target_ds, prepare_source,
     Adam(0.9, 0.99) for D (train.py:172). Over ranks: each loads its
     slices and runs the sharded DA step (JAX cli.py:660-690)."""
     pin = device.type == "cuda"
+    shard, shards = _data_shard(rank, world, spatial)
     loader_source = Loader(source_ds, args.batch_size, shuffle=True,
                            seed=args.seed, drop_last=True,
                            num_workers=args.num_workers, pin_memory=pin,
                            worker_timeout=args.worker_timeout,
-                           process_id=rank, process_count=world)
+                           process_id=shard, process_count=shards)
     loader_target = Loader(target_ds, args.batch_size, shuffle=True,
                            seed=args.seed + 1, drop_last=True,
                            num_workers=args.num_workers, pin_memory=pin,
                            worker_timeout=args.worker_timeout,
-                           process_id=rank, process_count=world)
+                           process_id=shard, process_count=shards)
     d_model = build_discriminator(
         args.num_classes, args.depthwise, args.batch_norm, device=device,
         generator=torch.Generator().manual_seed(args.seed + 2))
@@ -794,7 +891,8 @@ def _train_da(args, model, source_ds, target_ds, prepare_source,
     if world > 1:
         step = make_sharded_da_step(model, d_model, g_opt, d_opt,
                                     num_classes=args.num_classes,
-                                    sync_bn=args.sync_bn, **kwargs)
+                                    sync_bn=args.sync_bn, spatial=spatial,
+                                    **kwargs)
     else:
         step = make_da_step(model, d_model, g_opt, d_opt, **kwargs)
     writer, logger = _writer_and_logger(args, rank)

@@ -82,6 +82,16 @@
 //   Every sum runs in a fixed order and no float atomics are used, so the
 //   same inputs give the same bits.
 //
+// Row windows (the height-sharded train step, parallel/spatial.py). The
+// wrapper passes a band's taps (the global taps of its output rows,
+// rebased to the band's first logits row), its logits rows as h and its
+// output rows as H; nothing here reads h or H as a global size, so both
+// kernels take a window unchanged. What a window adds is the count: the
+// band's share of a global mean divides by the valid pixels of every
+// band, a device scalar summed on the stream (n_in). With it the
+// finishing block writes sum / n_in and n_out = n_in, and the backward
+// scales by that n; without it (n_in null) both use the band's own count.
+//
 // Bound on this card, per head at batch 8 and 1024 x 512: 80 M exp (68 M
 // on valid pixels) at the SFU's 16 a clock an SM, on all of an H100's SMs,
 // is ~0.02 ms; the 16.8 MB of int32 labels take 0.005 ms. Measured on an
@@ -284,9 +294,12 @@ __global__ void __launch_bounds__(kThreads, NC > 0 ? 3 : 1) ce_fwd_band_kernel(
 }
 
 // One block of 1024 threads: the partials in a fixed order -> loss, N.
+// n_in, when given, is N (a window's global count) in place of the sum of
+// the counts.
 __global__ void __launch_bounds__(1024) ce_fwd_finish_kernel(
     const float* __restrict__ part_sum, const int* __restrict__ part_cnt,
-    int64_t n_parts, float* __restrict__ loss_out, float* __restrict__ n_out) {
+    int64_t n_parts, const float* __restrict__ n_in,
+    float* __restrict__ loss_out, float* __restrict__ n_out) {
   __shared__ double d_scratch[1024];
   __shared__ long long c_scratch[1024];
   double s = 0.0;
@@ -306,7 +319,8 @@ __global__ void __launch_bounds__(1024) ce_fwd_finish_kernel(
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    const float n = (float)(c_scratch[0] > 1 ? c_scratch[0] : 1);
+    const float n = n_in != nullptr ? n_in[0]
+                                    : (float)(c_scratch[0] > 1 ? c_scratch[0] : 1);
     loss_out[0] = __fdiv_rn((float)d_scratch[0], n);
     n_out[0] = n;
   }
@@ -453,8 +467,8 @@ int launch_fwd_nc(const void* logits, const void* labels, const void* lo_y,
                   const void* hi_y, const void* ty, const void* hi_x,
                   const void* tx, const void* xr, int B, int C, int h, int w,
                   int H, int W, int ignore, int rows, void* part_sum,
-                  void* part_cnt, void* loss_out, void* n_out,
-                  cudaStream_t s) {
+                  void* part_cnt, const void* n_in, void* loss_out,
+                  void* n_out, cudaStream_t s) {
   const int n_bands = (H + rows - 1) / rows;
   const int64_t blocks = (int64_t)B * n_bands;
   const int smem = 2 * C * kThreads * (int)sizeof(float);
@@ -473,6 +487,7 @@ int launch_fwd_nc(const void* logits, const void* labels, const void* lo_y,
   if (err != cudaSuccess) return (int)err;
   ce_fwd_finish_kernel<<<1, 1024, 0, s>>>((const float*)part_sum,
                                           (const int*)part_cnt, blocks,
+                                          (const float*)n_in,
                                           (float*)loss_out, (float*)n_out);
   return (int)cudaGetLastError();
 }
@@ -482,15 +497,16 @@ int launch_fwd(const void* logits, const void* labels, const void* lo_y,
                const void* hi_y, const void* ty, const void* hi_x,
                const void* tx, const void* xr, int B, int C, int h, int w,
                int H, int W, int ignore, int rows, void* part_sum,
-               void* part_cnt, void* loss_out, void* n_out, void* stream) {
+               void* part_cnt, const void* n_in, void* loss_out, void* n_out,
+               void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (C == 19)
     return launch_fwd_nc<T, 19>(logits, labels, lo_y, hi_y, ty, hi_x, tx, xr,
                                 B, C, h, w, H, W, ignore, rows, part_sum,
-                                part_cnt, loss_out, n_out, s);
+                                part_cnt, n_in, loss_out, n_out, s);
   return launch_fwd_nc<T, 0>(logits, labels, lo_y, hi_y, ty, hi_x, tx, xr, B,
                              C, h, w, H, W, ignore, rows, part_sum, part_cnt,
-                             loss_out, n_out, s);
+                             n_in, loss_out, n_out, s);
 }
 
 template <typename T, int NC>
@@ -550,9 +566,10 @@ int launch_bwd(const void* logits, const void* labels, const void* lo_y,
                       const void* hi_x, const void* tx, const void* xr,       \
                       int B, int C, int h, int w, int H, int W, int ignore,   \
                       int rows, void* part_sum, void* part_cnt,               \
-                      void* loss_out, void* n_out, void* stream) {            \
+                      const void* n_in, void* loss_out, void* n_out,          \
+                      void* stream) {                                         \
     return launch_fwd<T>(logits, labels, lo_y, hi_y, ty, hi_x, tx, xr, B, C,  \
-                         h, w, H, W, ignore, rows, part_sum, part_cnt,        \
+                         h, w, H, W, ignore, rows, part_sum, part_cnt, n_in,  \
                          loss_out, n_out, stream);                            \
   }
 

@@ -17,6 +17,11 @@ reference model/model_stages.py:
 ``build_bisenet`` makes a model with seeded weights from a
 ``torch.Generator``, drawn on the CPU so that every device gets the same
 numbers.
+
+The height-sharded mesh (``parallel/spatial.py``) swaps three named
+functions per instance: ``mean_hw`` (the global means of ARM, the context
+path and FFM), ``upsample`` (the context path's nearest upsample) and
+``resize`` (``forward``'s align_corners resize).
 """
 
 from __future__ import annotations
@@ -64,8 +69,15 @@ class BiSeNetOutput(nn.Module):
         return self.conv_out(self.conv(x))
 
 
+def mean_hw(x: torch.Tensor) -> torch.Tensor:
+    """The global average over H and W, kept as (B, C, 1, 1)."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
 class AttentionRefinementModule(nn.Module):
     """Channel attention (reference model_stages.py:68-85)."""
+
+    mean_hw = staticmethod(mean_hw)
 
     def __init__(self, in_chan: int, out_chan: int, device=None):
         super().__init__()
@@ -76,7 +88,7 @@ class AttentionRefinementModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feat = self.conv(x)
-        atten = feat.mean(dim=(2, 3), keepdim=True)
+        atten = self.mean_hw(feat)
         atten = torch.sigmoid(self.bn_atten(self.conv_atten(atten)))
         return feat * atten
 
@@ -85,6 +97,9 @@ class ContextPath(nn.Module):
     """Backbone + ARM pyramid + global context (reference
     model_stages.py:94-135; the reference ignores the backbone argument,
     :98, so only the STDC1 family is accepted)."""
+
+    mean_hw = staticmethod(mean_hw)
+    upsample = staticmethod(upsample_nearest)
 
     def __init__(self, backbone_name: str = "STDCNet813",
                  use_conv_last: bool = False, device=None):
@@ -104,15 +119,15 @@ class ContextPath(nn.Module):
         h16, w16 = feat16.shape[2:]
         h32, w32 = feat32.shape[2:]
 
-        avg = self.conv_avg(feat32.mean(dim=(2, 3), keepdim=True))
-        avg_up = upsample_nearest(avg, (h32, w32))
+        avg = self.conv_avg(self.mean_hw(feat32))
+        avg_up = self.upsample(avg, (h32, w32))
 
         feat32_sum = self.arm32(feat32) + avg_up
-        feat32_up = upsample_nearest(feat32_sum, (h16, w16))
+        feat32_up = self.upsample(feat32_sum, (h16, w16))
         feat32_up = self.conv_head32(feat32_up)
 
         feat16_sum = self.arm16(feat16) + feat32_up
-        feat16_up = upsample_nearest(feat16_sum, (h8, w8))
+        feat16_up = self.upsample(feat16_sum, (h8, w8))
         feat16_up = self.conv_head16(feat16_up)
 
         return feat2, feat4, feat8, feat16, feat16_up, feat32_up
@@ -121,6 +136,8 @@ class ContextPath(nn.Module):
 class FeatureFusionModule(nn.Module):
     """Concat spatial + context, 1x1 ConvBNReLU, SE-style gate + residual
     (reference model_stages.py:155-185)."""
+
+    mean_hw = staticmethod(mean_hw)
 
     def __init__(self, in_chan: int, out_chan: int, device=None):
         super().__init__()
@@ -132,7 +149,7 @@ class FeatureFusionModule(nn.Module):
 
     def forward(self, fsp: torch.Tensor, fcp: torch.Tensor) -> torch.Tensor:
         feat = self.convblk(torch.cat([fsp, fcp], dim=1))
-        atten = feat.mean(dim=(2, 3), keepdim=True)
+        atten = self.mean_hw(feat)
         atten = torch.sigmoid(self.conv2(F.relu(self.conv1(atten))))
         return feat * atten + feat
 
@@ -143,6 +160,8 @@ class BiSeNet(nn.Module):
     ``forward`` returns the three upsampled heads (out, out16, out32) as
     NCHW logits, in the reference's order; ``features`` returns them
     before upsampling, for the fused eval kernel."""
+
+    resize = staticmethod(resize_bilinear_align_corners)
 
     def __init__(self, n_classes: int, backbone_name: str = "STDCNet813",
                  use_conv_last: bool = False, device=None):
@@ -162,8 +181,7 @@ class BiSeNet(nn.Module):
 
     def forward(self, x: torch.Tensor):
         hw = x.shape[2:]
-        return tuple(resize_bilinear_align_corners(f, hw)
-                     for f in self.features(x))
+        return tuple(self.resize(f, hw) for f in self.features(x))
 
 
 @torch.no_grad()

@@ -22,6 +22,10 @@ Inputs are softmax maps (B, num_classes, H, W). Every conv has a bias, as
 torch's ``Conv2d`` default; attribute names give the reference's
 state-dict keys (``conv1_d``, ``bn1_p``, ``classifier``, ...). BN is
 ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)`` (JAX ops/norm.py:35-101).
+
+Each forward is the chain of ``layers()``: (conv, BN or None, LeakyReLU
+or not) in order, which the height-sharded mesh walks on a band
+(``parallel/spatial.py::SpatialMesh.discriminator``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,23 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
-class FCDiscriminator(nn.Module):
+class _Chain(nn.Module):
+    """A discriminator whose forward is its ``layers()`` in order."""
+
+    def layers(self):
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, norm, act in self.layers():
+            x = conv(x)
+            if norm is not None:
+                x = norm(x)
+            if act:
+                x = _lrelu(x)
+        return x
+
+
+class FCDiscriminator(_Chain):
     """Reference discriminator.py:4-28 (JAX :51)."""
 
     def __init__(self, num_classes: int, ndf: int = 64):
@@ -50,13 +70,13 @@ class FCDiscriminator(nn.Module):
         self.conv4 = nn.Conv2d(ndf * 4, ndf * 8, 4, 2, 1)
         self.classifier = nn.Conv2d(ndf * 8, 1, 4, 2, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
-            x = _lrelu(conv(x))
-        return self.classifier(x)
+    def layers(self):
+        return [(conv, None, True) for conv in
+                (self.conv1, self.conv2, self.conv3, self.conv4)] \
+            + [(self.classifier, None, False)]
 
 
-class DepthWiseSepFCDiscriminator(nn.Module):
+class DepthWiseSepFCDiscriminator(_Chain):
     """Reference discriminator.py:30-73 (JAX :75), padding=1 pointwise
     convs kept."""
 
@@ -70,14 +90,13 @@ class DepthWiseSepFCDiscriminator(nn.Module):
             setattr(self, f"conv{i + 1}_p", nn.Conv2d(c_in, c_out, 1, 1, 1))
         self.classifier = nn.Conv2d(ndf * 8, 1, 4, 2, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(1, 5):
-            x = _lrelu(getattr(self, f"conv{i}_d")(x))
-            x = _lrelu(getattr(self, f"conv{i}_p")(x))
-        return self.classifier(x)
+    def layers(self):
+        return [(getattr(self, f"conv{i}_{s}"), None, True)
+                for i in range(1, 5) for s in "dp"] \
+            + [(self.classifier, None, False)]
 
 
-class DepthWiseSepBNFCDiscriminator(nn.Module):
+class DepthWiseSepBNFCDiscriminator(_Chain):
     """Reference discriminator.py:75-134 (JAX :105): BN after every conv
     of the depthwise-separable pairs."""
 
@@ -93,12 +112,10 @@ class DepthWiseSepBNFCDiscriminator(nn.Module):
             setattr(self, f"bn{i + 1}_p", _bn(c_out))
         self.classifier = nn.Conv2d(ndf * 8, 1, 4, 2, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(1, 5):
-            for s in "dp":
-                conv = getattr(self, f"conv{i}_{s}")
-                x = _lrelu(getattr(self, f"bn{i}_{s}")(conv(x)))
-        return self.classifier(x)
+    def layers(self):
+        return [(getattr(self, f"conv{i}_{s}"), getattr(self, f"bn{i}_{s}"),
+                 True) for i in range(1, 5) for s in "dp"] \
+            + [(self.classifier, None, False)]
 
 
 def build_discriminator(num_classes: int, depthwise: bool = False,

@@ -23,17 +23,25 @@ nothing of the model; eager calls on a card go to the launcher directly.
 Eval inference (reference train.py:36-38): the main head's stride-8
 logits, upsampled to the input size (model_stages.py:240), then the class
 argmax (utils.py:120-122).
+
+A row window (``ops/resize.py::RowWindow``, the height-sharded eval of
+``parallel/spatial.py``) computes only the global output rows ``[y0,
+y1)`` from a band of logits rows: the launch passes the global taps of
+those rows, rebased to the band's first row, the band's rows as ``h`` and
+``y1 - y0`` as the output height. The kernel reads ``h`` only as the
+plane's size and ``H`` only as its own output's height, so its source is
+the same for a window; a window's taps are cached apart (``taps_on``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ..resize import ranges_on, taps_on, upsample_two_tap
+from ..resize import RowWindow, check_window, ranges_on, taps_on, upsample_two_tap
 from . import OP_NAMESPACE
 from .build import check_launch, current_stream, load_library, sm_count
 
@@ -94,18 +102,20 @@ def band_geometry(b: int, out_h: int, out_w: int, w: int, sms: int
     return rows, stage_bytes(rows * out_w) <= STAGE_LIMIT
 
 
-def upsample_argmax_reference(logits: torch.Tensor,
-                              out_hw: Tuple[int, int]) -> torch.Tensor:
+def upsample_argmax_reference(logits: torch.Tensor, out_hw: Tuple[int, int],
+                              window: Optional[RowWindow] = None
+                              ) -> torch.Tensor:
     """Plain PyTorch version: (B, C, h, w) fp32/bf16 -> (B, H, W) int32.
 
     Rows first, then columns (JAX resize.py:109-112); each product and sum
     is its own fp32 op, as in the kernel; ``torch.argmax`` picks the first
-    NaN, otherwise the first of the largest."""
-    return upsample_two_tap(logits, out_hw).argmax(1).to(torch.int32)
+    NaN, otherwise the first of the largest. ``window``: as
+    ``upsample_argmax``'s."""
+    return upsample_two_tap(logits, out_hw, window).argmax(1).to(torch.int32)
 
 
-def upsample_argmax(logits: torch.Tensor,
-                    out_hw: Tuple[int, int]) -> torch.Tensor:
+def upsample_argmax(logits: torch.Tensor, out_hw: Tuple[int, int],
+                    window: Optional[RowWindow] = None) -> torch.Tensor:
     """(B, C, h, w) contiguous fp32 or bf16 logits -> (B, H, W) int32
     argmax of their align_corners bilinear upsample to ``out_hw``.
 
@@ -116,11 +126,23 @@ def upsample_argmax(logits: torch.Tensor,
     costs the host about 8 us a call on an H100's host (``chip_smoke.py
     --baseline``, ``time_dispatch``). A CUDA tensor always goes through
     the kernel: a failed build, load or launch raises. A CPU tensor goes
-    through the plain version."""
+    through the plain version.
+
+    ``window``: the height-sharded form. ``logits`` is a band of the
+    global logits starting at row ``window.base`` and holding every tap of
+    the global output rows ``[window.y0, window.y1)``; ``out_hw`` is those
+    rows' (y1 - y0, W). The result is those rows of the full call's, bit
+    for bit. A window is not exported (no custom op takes it)."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     _check(logits, out_h, out_w)
     if logits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {logits.device}")
+    if window is not None:
+        window = RowWindow(*(int(v) for v in window))
+        check_window(window, logits.shape[2], out_h)
+        if logits.device.type == "cuda":
+            return _launch(logits, out_h, out_w, window)
+        return upsample_argmax_reference(logits, (out_h, out_w), window)
     if logits.device.type == "cuda" and not torch.compiler.is_exporting():
         return _upsample_argmax_launch(logits, out_h, out_w)
     return _upsample_argmax_op(logits, out_h, out_w)
@@ -161,8 +183,15 @@ def _upsample_argmax_launch(logits: torch.Tensor, out_h: int,
     """``dseg::upsample_argmax`` on a card: one launch of the kernel. A
     loaded artifact calls the op directly, so the checks run here again,
     with the 32-bit index limit, on the concrete batch."""
-    global LAUNCHES
     _check(logits, out_h, out_w)
+    return _launch(logits, out_h, out_w, None)
+
+
+def _launch(logits: torch.Tensor, out_h: int, out_w: int,
+            window: Optional[RowWindow]) -> torch.Tensor:
+    """One launch of the kernel over ``out_h`` output rows: all of them,
+    or the window's from its rebased taps."""
+    global LAUNCHES
     b, c, h, w = logits.shape
     if max(b * c * h * w, b * out_h * out_w, 4 * w) > _INT_MAX:
         raise ValueError("the shape exceeds the kernel's 32-bit indices: "
@@ -174,7 +203,7 @@ def _upsample_argmax_launch(logits: torch.Tensor, out_h: int,
     lib = _library()
     fn = (lib.upsample_argmax_f32 if logits.dtype == torch.float32
           else lib.upsample_argmax_bf16)
-    lo_y, hi_y, ty = taps_on(h, out_h, dev)
+    lo_y, hi_y, ty = taps_on(h, out_h, dev, window)
     _, hi_x, tx = taps_on(w, out_w, dev)
     xr = ranges_on(w, out_w, dev)
     rows, staged = band_geometry(b, out_h, out_w, w, sm_count(dev.index))

@@ -19,7 +19,7 @@ logits' dtype.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,11 +69,13 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.where(kth > threshold, mean_above, mean_topk)
 
 
-def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, target: float,
+                    count: Optional[int] = None) -> torch.Tensor:
     """Mean BCE-with-logits against a constant ``target`` (the domain
     label), in fp32: ``max(x, 0) - x*y + log1p(exp(-|x|))`` (JAX
-    losses.py:93-101, torch's stable form)."""
+    losses.py:93-101, torch's stable form). ``count``: the sum over it
+    instead of the mean (a band's share of a global mean)."""
     x = logits.float()
     loss = torch.clamp_min(x, 0.0) - x * float(target) \
         + torch.log1p(torch.exp(-x.abs()))
-    return loss.mean()
+    return loss.mean() if count is None else loss.sum() / count

@@ -17,12 +17,18 @@ TPU (resize.py:58-94); in PyTorch they are native:
 their plain versions take their taps from it, so all interpolate with the
 same numbers as JAX. ``upsample_two_tap`` is that plain interpolation;
 ``tap_ranges`` is the kernels' plan of column segments.
+
+``RowWindow`` names a band of output rows of a height-sharded upsample
+(``parallel/spatial.py``): the band's taps are the rows of the global
+geometry's, rebased to the first logits row the band holds
+(``window_taps``), and ``window_rows`` is the logits rows they reach, the
+band's rows and its halo.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,14 +54,63 @@ def _align_corners_taps(in_size: int, out_size: int):
     return lo, hi, w_hi
 
 
+class RowWindow(NamedTuple):
+    """Output rows ``[y0, y1)`` of an align_corners upsample of ``h``
+    logits rows to ``H`` output rows, computed from a band of logits whose
+    first row is the global row ``base``."""
+    y0: int
+    y1: int
+    h: int
+    H: int
+    base: int
+
+
+def window_rows(y0: int, y1: int, h: int, H: int) -> Tuple[int, int]:
+    """The global logits rows ``[lo, hi)`` that output rows ``[y0, y1)``
+    read: the lo tap of the first, to the hi tap of the last. Either may
+    lie a row outside the band that owns the output rows."""
+    lo, hi, _ = _align_corners_taps(h, H)
+    return int(lo[y0]), int(hi[y1 - 1]) + 1
+
+
+@functools.lru_cache(maxsize=256)
+def window_taps(window: RowWindow):
+    """(lo, hi, t) of the window's output rows as numpy arrays: the global
+    taps of rows ``[y0, y1)``, the indices rebased to ``base``."""
+    y0, y1, h, H, base = window
+    if not 0 <= y0 < y1 <= H:
+        raise ValueError(f"window rows [{y0}, {y1}) outside 0..{H}")
+    lo, hi, t = _align_corners_taps(h, H)
+    lo, hi = lo[y0:y1] - base, hi[y0:y1] - base
+    if lo.min() < 0:
+        raise ValueError(f"{window}: the logits band starts below row "
+                         f"{base + int(lo.min())}")
+    return lo.astype(np.int32), hi.astype(np.int32), t[y0:y1]
+
+
+def check_window(window: RowWindow, rows: int, out_rows: int) -> None:
+    """Raise unless ``rows`` logits rows from ``window.base`` hold every
+    tap of the window's ``out_rows`` output rows."""
+    if window.y1 - window.y0 != out_rows:
+        raise ValueError(f"{window} has {window.y1 - window.y0} output rows,"
+                         f" not {out_rows}")
+    _, hi, _ = window_taps(window)
+    if int(hi.max()) >= rows:
+        raise ValueError(f"{window}: the logits band of {rows} rows ends "
+                         f"before row {window.base + int(hi.max())}")
+
+
 @functools.lru_cache(maxsize=64)
-def taps_on(in_size: int, out_size: int, device: torch.device):
+def taps_on(in_size: int, out_size: int, device: torch.device,
+            window: Optional[RowWindow] = None):
     """(lo, hi, t) of one axis as int32/int32/fp32 tensors on ``device``.
 
     Made outside inference mode even when first asked for inside it (by
     evaluation): the cached tensors are reused by the training loss,
-    whose backward saves them."""
-    lo, hi, t = _align_corners_taps(in_size, out_size)
+    whose backward saves them. ``window``: the rebased taps of its rows
+    (``window_taps``), cached apart from the full axis's."""
+    lo, hi, t = (_align_corners_taps(in_size, out_size) if window is None
+                 else window_taps(window))
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(a).to(device) for a in (lo, hi, t))
 
@@ -82,16 +137,20 @@ def ranges_on(in_size: int, out_size: int, device: torch.device):
         return torch.from_numpy(tap_ranges(in_size, out_size)).to(device)
 
 
-def upsample_two_tap(logits: torch.Tensor,
-                     out_hw: Tuple[int, int]) -> torch.Tensor:
+def upsample_two_tap(logits: torch.Tensor, out_hw: Tuple[int, int],
+                     window: Optional[RowWindow] = None) -> torch.Tensor:
     """align_corners bilinear upsample of (B, C, h, w) to fp32 (B, C, H, W)
     from ``_align_corners_taps``: rows first, then columns (JAX
     resize.py:109-112), each product and sum its own fp32 op, as the fused
-    CUDA kernels compute it."""
-    x = logits.float()
+    CUDA kernels compute it (float64 logits stay float64). ``window``:
+    only its output rows (``out_hw`` is then the band's), from logits rows
+    starting at ``window.base``."""
+    x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     _, _, h, w = x.shape
     out_h, out_w = out_hw
-    lo_y, hi_y, ty = taps_on(h, out_h, x.device)
+    if window is not None:
+        check_window(window, h, out_h)
+    lo_y, hi_y, ty = taps_on(h, out_h, x.device, window)
     lo_x, hi_x, tx = taps_on(w, out_w, x.device)
     ty = ty.view(out_h, 1)
     rows = (1 - ty) * x.index_select(2, lo_y) + ty * x.index_select(2, hi_y)

@@ -2,4 +2,6 @@
 ``dasemanticsegmentationaml_tpu/parallel/``; the reference's
 ``nn.DataParallel``, train.py:497): ``distributed.py`` joins the group and
 holds its collectives, ``sync_bn.py`` normalises over the global batch,
-``mesh.py`` holds the sharded train and DA steps."""
+``mesh.py`` holds the sharded train and DA steps, ``spatial.py`` the
+height-sharded mesh (``--spatial_devices``: bands of image rows and their
+halo exchanges)."""

@@ -38,6 +38,15 @@ rank 0's at every forward.
 The export and eval convention of JAX's ``untile_state`` (shard 0's
 statistics, as torch saves device 0's module) is ``rank0_buffers`` /
 ``untile_state``.
+
+The height-sharded mesh (``spatial``, ``parallel/spatial.py``; JAX
+``create_mesh_spatial`` with the sync step, cli.py:164-207): sync BN only,
+over the world group (data × spatial). Each rank holds a band of rows of
+its data shard, every loss it backpropagates is its band's share of the
+global one (CE over the global valid count; OHEM over the world's pixel
+losses in the global batch's order; D's BCE over D's global output
+count, since D's bands are unequal), and the ``Reducer`` of the world
+sums the gradients, as above.
 """
 
 from __future__ import annotations
@@ -122,7 +131,7 @@ class Reducer:
 def sync_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                             threshold: float, keep_num: int,
                             ignore_index: int = 255,
-                            group=None) -> torch.Tensor:
+                            group=None, layout=None) -> torch.Tensor:
     """This rank's share of OHEM CE over the group's global batch (JAX
     ops/losses.py:61-90 run by the global program of the sync step): the
     pixel losses of every rank are gathered in rank order (each rank's
@@ -130,12 +139,20 @@ def sync_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     the branch, and the rank's selected losses are summed over the global
     count of the selection. The top ``keep_num`` are those of JAX's
     ``sort(...)[::-1]``: ties are taken from the end of the global batch.
-    The shares of the ranks sum to the global loss."""
+    The shares of the ranks sum to the global loss. ``layout``: (data,
+    spatial) sizes of a height-sharded mesh, whose rank d·S + s holds
+    band s of data shard d: the gathered losses are put in the global
+    batch's order (image, row, column) before the sort."""
     loss, valid = _per_pixel_ce(logits, labels, ignore_index)
     flat = torch.where(valid.reshape(-1), loss.reshape(-1), -torch.inf)
     parts = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, flat.detach().contiguous(), group=group)
     everything = torch.cat(parts)
+    if layout is not None:
+        data, bands = layout
+        b = logits.shape[0]
+        everything = everything.view(data, bands, b, -1).transpose(
+            1, 2).reshape(-1)
     order = torch.sort(everything, stable=True).indices.flip(0)
     sorted_desc = everything[order]
     k = min(keep_num, everything.numel() - 1)
@@ -145,8 +162,13 @@ def sync_ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     n_above = (sorted_desc > threshold).sum().float().clamp_min(1.0)
     in_topk = torch.zeros_like(everything, dtype=torch.bool)
     in_topk[order[:k]] = True
-    start = dist.get_rank(group) * flat.numel()
-    topk = in_topk[start:start + flat.numel()] & torch.isfinite(flat)
+    rank = dist.get_rank(group)
+    if layout is not None:
+        mine = in_topk.view(data, b, bands, -1)[
+            rank // bands, :, rank % bands].reshape(-1)
+    else:
+        mine = in_topk[rank * flat.numel():(rank + 1) * flat.numel()]
+    topk = mine & torch.isfinite(flat)
     n_topk = torch.isfinite(sorted_desc[:k]).sum().float().clamp_min(1.0)
 
     share_above = torch.where(above, flat, 0.0).sum() / n_above
@@ -203,7 +225,8 @@ def make_sharded_train_step(model, optimizer, group=None, *,
                             ohem: Optional[dict] = None, accumulator=None,
                             amp_dtype: Optional[torch.dtype] = None,
                             ignore_index: int = 255,
-                            ce: Callable = cross_entropy_upsampled):
+                            ce: Callable = cross_entropy_upsampled,
+                            spatial=None):
     """step(images, labels) on this rank's rows of the global batch ->
     the global loss as a detached device scalar, equal on every rank
     (JAX mesh.py:162-247; the single-device step is
@@ -211,8 +234,18 @@ def make_sharded_train_step(model, optimizer, group=None, *,
     model's BN layers in place (``convert_sync_batchnorm``); the
     optimizer keeps its parameters. ``accumulator``: the
     ``GradientAccumulator`` over ``optimizer`` (``--iter_size``), fed the
-    reduced gradients of each mini-step."""
-    if sync_bn:
+    reduced gradients of each mini-step. ``spatial``: the height-sharded
+    mesh over the default group (``parallel/spatial.py``); the images and
+    labels are this rank's band, and the model is converted in place
+    (``SpatialMesh.convert``)."""
+    layout = None
+    if spatial is not None:
+        if not sync_bn or group is not None:
+            raise ValueError("the spatial mesh takes sync BN over the "
+                             "default group")
+        spatial.convert(model)
+        layout = (spatial.data_size, spatial.spatial_size)
+    elif sync_bn:
         convert_sync_batchnorm(model, group)
     reducer = Reducer(group, sync_bn=sync_bn, num_classes=num_classes,
                       ignore_index=ignore_index)
@@ -220,13 +253,15 @@ def make_sharded_train_step(model, optimizer, group=None, *,
     loss_fn = make_supervised_loss(
         model, ohem=ohem, ignore_index=ignore_index, amp_dtype=amp_dtype,
         ce=ce, ohem_loss=(functools.partial(sync_ohem_cross_entropy,
-                                            group=group)
-                          if global_ohem else ohem_cross_entropy))
+                                            group=group, layout=layout)
+                          if global_ohem else ohem_cross_entropy),
+        spatial=spatial)
 
     def step(images, labels):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(images, labels)
-        share = loss if global_ohem else loss * reducer.ce_share(labels)
+        share = (loss if global_ohem or spatial is not None
+                 else loss * reducer.ce_share(labels))
         share.backward()
         reducer.grads(optimizer)
         if accumulator is None:
@@ -244,13 +279,22 @@ def make_sharded_da_step(g, d, g_opt, d_opt, group=None, *,
                          step_mode: str = "interleaved",
                          amp_dtype: Optional[torch.dtype] = None,
                          ignore_index: int = 255,
-                         ce: Callable = cross_entropy_upsampled):
+                         ce: Callable = cross_entropy_upsampled,
+                         spatial=None):
     """The 4-phase DA step on this rank's rows of the source and target
     batches (JAX mesh.py:250-324): ``train/adversarial.py::make_da_step``
     with this group's ``Reducer`` at its reduce points; ``sync_bn``
     converts G's and D's BN layers in place. The metrics are the global
-    batch's, equal on every rank."""
-    if sync_bn:
+    batch's, equal on every rank. ``spatial``: as
+    ``make_sharded_train_step``'s; D's BN syncs over the world and D runs
+    banded (``SpatialMesh.discriminator``)."""
+    if spatial is not None:
+        if not sync_bn or group is not None:
+            raise ValueError("the spatial mesh takes sync BN over the "
+                             "default group")
+        spatial.convert(g)
+        convert_sync_batchnorm(d)
+    elif sync_bn:
         convert_sync_batchnorm(g, group)
         convert_sync_batchnorm(d, group)
     reducer = Reducer(group, sync_bn=sync_bn, num_classes=num_classes,
@@ -258,5 +302,5 @@ def make_sharded_da_step(g, d, g_opt, d_opt, group=None, *,
     return make_da_step(g, d, g_opt, d_opt, lambda_adv=lambda_adv,
                         ignore_index=ignore_index, d_head=d_head,
                         step_mode=step_mode, amp_dtype=amp_dtype, ce=ce,
-                        reducer=reducer)
+                        reducer=reducer, spatial=spatial)
 

@@ -57,7 +57,7 @@ import torch.nn.functional as F
 
 from ..data.pipeline import device_prefetch
 from ..ops.cuda.fused_ce import cross_entropy_upsampled
-from ..ops.losses import bce_with_logits, cross_entropy_ignore
+from ..ops.losses import _per_pixel_ce, bce_with_logits, cross_entropy_ignore
 from ..ops.resize import resize_bilinear_align_corners
 from ..ops.schedules import ConstantLR, PolyLR
 from .optim import set_learning_rate
@@ -84,7 +84,8 @@ def make_da_step(g, d, g_opt, d_opt, *, lambda_adv: float,
                  ignore_index: int = 255, d_head: int = 0,
                  step_mode: str = "interleaved",
                  amp_dtype: Optional[torch.dtype] = None,
-                 ce: Callable = cross_entropy_upsampled, reducer=None):
+                 ce: Callable = cross_entropy_upsampled, reducer=None,
+                 spatial=None):
     """step(src_images, src_labels, tgt_images) -> metrics, a dict of
     detached device scalars: ``loss`` (the seg loss), ``loss_D1`` (lambda *
     adversarial BCE), ``loss_G`` (their sum) and ``loss_adv`` (D's two
@@ -96,14 +97,22 @@ def make_da_step(g, d, g_opt, d_opt, *, lambda_adv: float,
     one, the gradients are summed over the ranks at JAX's reduce points
     (``reduce`` :108-110: before each optimizer step of the interleaved
     step, before the two steps of the combined one) and the metrics are
-    the global batch's."""
+    the global batch's.
+
+    ``spatial``: the height-sharded mesh (``parallel/spatial.py``), with
+    G converted and D's BN synced by the caller: the images and labels
+    are this rank's band, G and D run banded, and every loss is already
+    the band's share of the global one: each head's CE over the global
+    valid count (the fused kernel's row window, the d_head head's plain
+    CE on its band of the upsample), each BCE over the element count of
+    D's global output (D's bands are unequal)."""
     if step_mode not in ("interleaved", "combined"):
         raise ValueError(f"unknown DA step_mode: {step_mode!r}")
 
     def backward(loss, share):
         """Backpropagate ``loss``, as the rank's share of it under a
         reducer; returns what was backpropagated."""
-        if reducer is not None:
+        if share is not None:
             loss = loss * share
         loss.backward()
         return loss
@@ -113,8 +122,9 @@ def make_da_step(g, d, g_opt, d_opt, *, lambda_adv: float,
             reducer.grads(optimizer)
 
     def shares(src_labels):
-        """(the seg loss's share, the BCEs' share) of this rank."""
-        if reducer is None:
+        """(the seg loss's share, the BCEs' share) of this rank: None
+        where the loss is its share already (spatial)."""
+        if reducer is None or spatial is not None:
             return None, None
         return reducer.ce_share(src_labels), reducer.mean_share
 
@@ -123,29 +133,46 @@ def make_da_step(g, d, g_opt, d_opt, *, lambda_adv: float,
             return contextlib.nullcontext()
         return torch.autocast(device_type, dtype=amp_dtype)
 
+    def banded():
+        return (spatial.banded() if spatial is not None
+                else contextlib.nullcontext())
+
     def heads(images):
         """G's heads at their strides, and the d_head head upsampled to the
         input size in fp32 or wider (what D and its CE see)."""
-        with autocast(images.device.type):
+        with autocast(images.device.type), banded():
             feats = g.features(images)
-        head = feats[d_head]
-        up = resize_bilinear_align_corners(
-            head.to(torch.promote_types(head.dtype, torch.float32)),
-            tuple(images.shape[2:]))
+            head = feats[d_head]
+            head = head.to(torch.promote_types(head.dtype, torch.float32))
+            hw = tuple(images.shape[2:])
+            up = (spatial.resize_band(head, hw) if spatial is not None
+                  else resize_bilinear_align_corners(head, hw))
         return feats, up
 
     def seg_loss(feats, up, labels):
         hw = tuple(labels.shape[1:])
-        losses = [cross_entropy_ignore(up, labels, ignore_index)
-                  if i == d_head else
-                  ce(f.contiguous(), labels, hw, ignore_index)
-                  for i, f in enumerate(feats)]
+        if spatial is not None:
+            n = spatial.valid_count(labels, up.shape[1], ignore_index)
+            losses = [_per_pixel_ce(up, labels, ignore_index)[0].sum() / n
+                      if i == d_head else
+                      spatial.band_ce(ce, f, labels, ignore_index, n)
+                      for i, f in enumerate(feats)]
+        else:
+            losses = [cross_entropy_ignore(up, labels, ignore_index)
+                      if i == d_head else
+                      ce(f.contiguous(), labels, hw, ignore_index)
+                      for i, f in enumerate(feats)]
         return losses[0] + losses[1] + losses[2]
 
     def d_bce(probs, label):
-        with autocast(probs.device.type):
-            out = d(probs)
-        return bce_with_logits(out, label)
+        count = None
+        with autocast(probs.device.type), banded():
+            if spatial is not None:
+                out, rows = spatial.discriminator(d, probs)
+                count = spatial.count_of(out, rows)
+            else:
+                out = d(probs)
+        return bce_with_logits(out, label, count)
 
     def zero_grad():
         g_opt.zero_grad(set_to_none=False)

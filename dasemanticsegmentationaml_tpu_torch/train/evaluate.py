@@ -69,7 +69,8 @@ GRAPH_CAPTURES = 0
 
 
 def predict(model, images: torch.Tensor, use_fused_kernel: bool,
-            amp_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            amp_dtype: Optional[torch.dtype] = None,
+            spatial=None) -> torch.Tensor:
     """NCHW images -> (B, H, W) int32 trainIds (JAX evaluate.py:38-46).
 
     use_fused_kernel: the main head's stride-8 logits go through
@@ -78,27 +79,52 @@ def predict(model, images: torch.Tensor, use_fused_kernel: bool,
     one. amp_dtype: run the model under ``torch.autocast`` in that dtype
     (bf16), with BN kept in fp32. Autocast's weight-cast cache is off: a
     captured graph must cast the live weights on every replay (a cached
-    cast would replay a stale copy), and a forward uses each weight once."""
+    cast would replay a stale copy), and a forward uses each weight once.
+    ``spatial``: ``images`` is this rank's band, the model (converted by
+    ``parallel/spatial.py``) runs banded and the kernel takes the band's
+    row window of the global upsample (``SpatialMesh.predict_band``)."""
     autocast = (torch.autocast(images.device.type, dtype=amp_dtype,
                                cache_enabled=False)
                 if amp_dtype is not None else contextlib.nullcontext())
-    with autocast:
+    with autocast, (spatial.banded() if spatial is not None
+                    else contextlib.nullcontext()):
         if use_fused_kernel:
             feat, _f16, _f32 = model.features(images)
         else:
             out, _out16, _out32 = model(images)
     if use_fused_kernel:
+        if spatial is not None:
+            return spatial.predict_band(feat, images.shape[2:])
         return upsample_argmax(feat.contiguous(), images.shape[2:])
     return out.argmax(1).to(torch.int32)
 
 
 def _count(model, images, labels, hist, correct, num_classes,
-           use_fused_kernel, amp_dtype) -> None:
+           use_fused_kernel, amp_dtype, spatial=None) -> None:
     """One batch's predictions added into ``hist`` and ``correct``, in
-    place (the step a window captures)."""
-    pred = predict(model, images, use_fused_kernel, amp_dtype)
+    place (the step a window captures). ``spatial``: a batch that splits
+    over the mesh's data axis is counted on this rank's band of its data
+    shard; another (a ragged tail) is counted whole, once, by rank 0
+    (JAX cli.py:419-424 leaves it unsharded)."""
+    if spatial is not None:
+        if spatial.shards(images):
+            images, labels = spatial.shard(images, labels)
+        elif spatial.rank != 0:
+            return
+        else:
+            spatial = None
+    pred = predict(model, images, use_fused_kernel, amp_dtype, spatial)
     hist += confusion_matrix(labels, pred, num_classes)
     correct += (pred == labels).sum()
+
+
+def counted_pixels(labels: torch.Tensor, spatial=None) -> int:
+    """The pixels ``_count`` counts on this rank for ``labels``."""
+    if spatial is None:
+        return labels.numel()
+    if spatial.shards(labels):
+        return labels.numel() // (spatial.data_size * spatial.spatial_size)
+    return labels.numel() if spatial.rank == 0 else 0
 
 
 def _launch_counts() -> Dict[str, int]:
@@ -190,7 +216,7 @@ def eval_counts(model, loader, num_classes: int, *,
                 amp_dtype: Optional[torch.dtype] = None,
                 scan_window: int = 0,
                 fetch_timeout: Optional[float] = FETCH_TIMEOUT,
-                graphs: Optional[EvalGraphs] = None
+                graphs: Optional[EvalGraphs] = None, spatial=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The whole dataset's int64 confusion matrix and correct-pixel count,
     on the device, and the pixel count. Nothing is read back: with pinned
@@ -198,9 +224,15 @@ def eval_counts(model, loader, num_classes: int, *,
     K same-shaped batches, one CUDA-graph replay each on a card (module
     docstring), kept in ``graphs`` for the next call (a fresh
     ``EvalGraphs`` when None). ``fetch_timeout``: ``device_prefetch``'s
-    watchdog."""
+    watchdog. ``spatial``: the height-sharded mesh: every rank is given
+    the whole batches and counts its band of each (``_count``); the
+    counts are this rank's share, summed over the ranks by the caller. A
+    window is captured only where the mesh's collectives can be
+    (``SpatialMesh.capturable``: NCCL); otherwise every batch runs
+    eagerly, to the same counts."""
     device = torch.device(device)
-    replay = scan_window > 1 and device.type == "cuda"
+    replay = (scan_window > 1 and device.type == "cuda"
+              and (spatial is None or spatial.capturable))
     if replay:
         graphs = graphs if graphs is not None else EvalGraphs()
         hist, correct = graphs.accumulators(model, device, num_classes)
@@ -212,7 +244,7 @@ def eval_counts(model, loader, num_classes: int, *,
 
     def step(images, labels, h, c):
         _count(model, images, labels, h, c, num_classes, use_fused_kernel,
-               amp_dtype)
+               amp_dtype, spatial)
 
     shape = None                  # the window's batch shape, from the first
     window: Optional[_WindowGraph] = None
@@ -221,7 +253,7 @@ def eval_counts(model, loader, num_classes: int, *,
         for images, labels in device_prefetch(
                 (prepare(b) for b in loader), transfer_timeout=fetch_timeout,
                 device=device):
-            total += labels.numel()
+            total += counted_pixels(labels, spatial)
             if replay:
                 key = (tuple(images.shape), images.dtype,
                        tuple(labels.shape), labels.dtype)
@@ -260,7 +292,8 @@ def evaluate(model, loader, num_classes: int, *,
              scan_window: int = 0, fetch_timeout: Optional[float] = FETCH_TIMEOUT,
              graphs: Optional[EvalGraphs] = None,
              print_results: bool = True,
-             cross_process_sum: bool = False) -> Tuple[float, float]:
+             cross_process_sum: bool = False,
+             spatial=None) -> Tuple[float, float]:
     """Whole-dataset eval; returns (precision, miou) like reference val()
     (JAX evaluate.py:133-258).
 
@@ -270,13 +303,14 @@ def evaluate(model, loader, num_classes: int, *,
     before the metrics (``parallel/distributed.py::allreduce_counts``;
     JAX :158-164, :242-245), so every rank gets the metrics of the whole
     set, bit-identical to one process's, confusion matrices being sums of
-    integers."""
+    integers. ``spatial``: the height-sharded eval (``eval_counts``),
+    whose counts are always summed over the ranks."""
     hist, correct, total = eval_counts(
         model, loader, num_classes, prepare=prepare, device=device,
         use_fused_kernel=use_fused_kernel, amp_dtype=amp_dtype,
         scan_window=scan_window, fetch_timeout=fetch_timeout,
-        graphs=graphs)
-    if cross_process_sum:
+        graphs=graphs, spatial=spatial)
+    if cross_process_sum or spatial is not None:
         hist, correct, total = allreduce_counts(hist, correct, total)
     precision = int(correct.item()) / max(total, 1)
     miou_list = per_class_iou(hist.cpu()).numpy()

@@ -44,7 +44,8 @@ def make_supervised_loss(model, *, ohem: Optional[dict] = None,
                          ignore_index: int = 255,
                          amp_dtype: Optional[torch.dtype] = None,
                          ce: Callable = cross_entropy_upsampled,
-                         ohem_loss: Callable = ohem_cross_entropy):
+                         ohem_loss: Callable = ohem_cross_entropy,
+                         spatial=None):
     """(images, labels) -> the summed loss of the three heads (JAX
     supervised.py:38-83).
 
@@ -55,7 +56,11 @@ def make_supervised_loss(model, *, ohem: Optional[dict] = None,
     a data-parallel sync step passes its global form,
     ``parallel/mesh.py::sync_ohem_cross_entropy``), as JAX does.
     ``amp_dtype``: run the model under ``torch.autocast``; the loss
-    is fp32 either way."""
+    is fp32 either way. ``spatial``: a converted model's
+    ``parallel/spatial.py::SpatialMesh``; ``images`` and ``labels`` are
+    then this rank's band, the forward runs banded, and each head's CE is
+    the band's share of the global mean (``SpatialMesh.band_ce``: ``ce``
+    on the band's row window over the global valid count)."""
 
     def autocast(device_type):
         if amp_dtype is None:
@@ -63,13 +68,20 @@ def make_supervised_loss(model, *, ohem: Optional[dict] = None,
         return torch.autocast(device_type, dtype=amp_dtype)
 
     def loss_fn(images, labels):
-        with autocast(images.device.type):
+        with autocast(images.device.type), \
+                (spatial.banded() if spatial is not None
+                 else contextlib.nullcontext()):
             heads = model(images) if ohem is not None \
                 else model.features(images)
         if ohem is not None:
             losses = [ohem_loss(o, labels, ohem["threshold"],
                                 ohem["keep_num"], ignore_index)
                       for o in heads]
+        elif spatial is not None:
+            n_valid = spatial.valid_count(labels, heads[0].shape[1],
+                                          ignore_index)
+            losses = [spatial.band_ce(ce, f, labels, ignore_index, n_valid)
+                      for f in heads]
         else:
             hw = tuple(images.shape[2:])
             losses = [ce(f.contiguous(), labels, hw, ignore_index)

@@ -124,7 +124,9 @@ _FLAGS = (
     ("--num_devices", int, None, None,
      "data parallel over this many devices, one rank each: cards --cuda "
      "to --cuda + N - 1 (NCCL), or N CPU ranks under --cuda cpu (gloo)"),
-    ("--spatial_devices", int, 1, None, "more than 1: " + _TODO),
+    ("--spatial_devices", int, 1, None,
+     "shard each image's height over this many of the --num_devices ranks "
+     "(a data x spatial mesh, sync BN only, single-process only)"),
     ("--d_pretrain_path", str, "", None,
      "DA: discriminator .pth to start from (its kind must match)"),
     ("--d_head", int, 0, (0, 2),

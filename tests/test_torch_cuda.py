@@ -1272,3 +1272,97 @@ def test_nccl_world_1_sync_step_equals_the_step_without_a_group(
     np.testing.assert_allclose(loss, plain_loss, rtol=1e-4)
     l2 = _update_l2(state, torch_ranks._snapshot(0, model)[0], init)
     assert l2["param"] < 0.02 and l2["stat"] < 0.02, l2
+
+
+# ----------------------------------------------- the row-window kernels
+
+def _row_windows(h, out_h, parts):
+    """(RowWindow, the logits rows [lo, hi)) of each even band of
+    ``out_h`` output rows, and of single rows at both ends."""
+    from dasemanticsegmentationaml_tpu_torch.ops.resize import (
+        RowWindow, window_rows)
+
+    bands = [(s * out_h // parts, (s + 1) * out_h // parts)
+             for s in range(parts)] + [(0, 1), (out_h - 1, out_h)]
+    out = []
+    for y0, y1 in bands:
+        lo, hi = window_rows(y0, y1, h, out_h)
+        out.append((RowWindow(y0, y1, h, out_h, lo), hi))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["normal", "ties", "nonfinite"])
+@pytest.mark.parametrize("shape,out_hw,parts", [
+    ((2, 19, 64, 128), (512, 1024), 2),   # the spatial eval's bands
+    ((2, 19, 64, 128), (512, 1024), 4),
+    ((1, 19, 13, 16), (100, 120), 4),      # taps past both band edges
+    ((2, 3, 16, 32), (128, 256), 3),       # the generic instance
+])
+def test_windowed_upsample_argmax_equals_full_rows(cuda_device, shape,
+                                                   out_hw, parts, kind,
+                                                   dtype):
+    """Each window's launch equals the same rows of the full kernel's and
+    the windowed plain version, bit for bit; one launch a window."""
+    x = _logits(cuda_device, shape, 3, kind, dtype)
+    full = ua.upsample_argmax(x, out_hw)
+    for window, hi in _row_windows(shape[2], out_hw[0], parts):
+        band = x[:, :, window.base:hi].contiguous()
+        rows = (window.y1 - window.y0, out_hw[1])
+        before = ua.LAUNCHES
+        got = ua.upsample_argmax(band, rows, window=window)
+        torch.cuda.synchronize()
+        assert ua.LAUNCHES == before + 1
+        assert torch.equal(got, full[:, window.y0:window.y1]), window
+        assert torch.equal(got, ua.upsample_argmax_reference(band, rows,
+                                                             window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,out_hw,parts", [
+    ((2, 19, 64, 32), (512, 256), 2),
+    ((1, 19, 13, 16), (100, 120), 4),
+    ((2, 3, 16, 32), (128, 256), 3),
+])
+def test_windowed_fused_ce_equals_plain_and_full(cuda_device, shape,
+                                                 out_hw, parts, dtype):
+    """Each band's kernels against the windowed plain version (loss 1e-5
+    of |loss|, gradient 1e-4 of its max plus a bf16 ulp); the bands'
+    shares over the global count sum to the full kernel's loss within
+    1e-5; in fp32 their gradients, put into the logits, equal the full
+    kernel's within 1e-4 of its max (in bf16 a halo row's two rounded
+    parts need not round to the whole's)."""
+    x = _logits(cuda_device, shape, 0, "normal", dtype)
+    labels = _ce_labels(cuda_device, (shape[0], *out_hw), 1, False,
+                        shape[1])
+    full, full_grad = _ce_value_and_grad(fc.cross_entropy_upsampled, x,
+                                         labels, out_hw)
+    n_valid = ((labels >= 0) & (labels < shape[1])).sum().float()
+    total = 0.0
+    assembled = torch.zeros_like(x, dtype=torch.float32)
+    for window, hi in _row_windows(shape[2], out_hw[0], parts)[:parts]:
+        band = x[:, :, window.base:hi].contiguous()
+        lab = labels[:, window.y0:window.y1].contiguous()
+        rows = (window.y1 - window.y0, out_hw[1])
+        kw = dict(window=window, n_valid=n_valid)
+        loss, grad = _ce_value_and_grad(
+            lambda v, t, o: fc.cross_entropy_upsampled(v, t, o, **kw), band,
+            lab, rows)
+        want, want_grad = _ce_value_and_grad(
+            lambda v, t, o: fc.cross_entropy_upsampled_reference(v, t, o,
+                                                                 **kw),
+            band, lab, rows)
+        assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+        bound = 1e-4 * want_grad.float().abs().max()
+        if dtype == torch.bfloat16:
+            bound = bound + 2.0**-7 * want_grad.float().abs()
+        assert bool(((grad.float() - want_grad.float()).abs()
+                     <= bound).all())
+        total += loss.item()
+        assembled[:, :, window.base:hi] += grad.float()
+    assert abs(total - full.item()) <= 1e-5 * abs(full.item())
+    if dtype == torch.float32:
+        bound = 1e-4 * full_grad.abs().max()
+        assert bool(((assembled - full_grad).abs() <= bound).all())

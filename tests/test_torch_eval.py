@@ -230,10 +230,11 @@ def test_domain_shift_cli_matches_jax(tmp_path, dataset):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--spatial_devices", "2"],
+    # windows are ported; the sharded export stops
+    ["--export_devices", "2", "--eval_scan_window", "8"],
     ["--domain_adaptation", "True", "--iter_size", "2"],
-    # int8 is ported; the multi-device stop stays
-    ["--quantize_int8", "True", "--spatial_devices", "2"],
+    # int8 is ported; the height-sharded export stops
+    ["--quantize_int8", "True", "--export_spatial", "True"],
     # the augmentation and profile flags are ported; the stops stay
     ["--aug_type", "H-RP", "--host_augment", "True", "--profile_dir",
      "runs/trace", "--export_devices", "2"],

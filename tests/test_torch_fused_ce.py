@@ -159,17 +159,19 @@ def _tap_matrix(in_size, out_size):
     return dense
 
 
-def _band_backward(p, h, w, k):
+def _band_backward(p, h, w, k, window=None):
     """The backward kernel's order of work in numpy (float64), from the
     wrapper's plans: per band of k source rows, the output rows of
     ``band_rows``; per row, each column segment's lo and hi sums, added to
     the left neighbour's hi sum; then the row taps into the band's rows and
-    its edge row; the edge rows from the two bands' partials."""
+    its edge row; the edge rows from the two bands' partials. ``window``:
+    ``h`` rows of a band of logits, its rebased taps and plan."""
     b, c, out_h, out_w = p.shape
-    lo_y, hi_y, ty = _align_corners_taps(h, out_h)
+    lo_y, hi_y, ty = (_align_corners_taps(h, out_h) if window is None
+                      else resize.window_taps(window))
     _, hi_x, tx = _align_corners_taps(w, out_w)
     xr = resize.tap_ranges(w, out_w)
-    plan = fc.band_rows(h, out_h, k)
+    plan = fc.band_rows(h, out_h, k, window)
     n_bands = len(plan) - 1
     dx = np.full((b, c, h, w), np.nan)
     edge_e = np.zeros((b, n_bands, c, w))

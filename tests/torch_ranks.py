@@ -407,3 +407,231 @@ def per_replica_reference(state_path, x, y, lr, wd, world=2,
                 for k, v in m.named_buffers() if v.is_floating_point()}
                for m in models]
     return float(np.mean(losses)), _snapshot(0, models[0])[0], buffers
+
+
+# ------------------------------------------------- the height-sharded mesh
+
+#: name -> (kind, its arguments, input shape): the banded ops of
+#: ``parallel/spatial.py``, each on a small float64 input
+SPATIAL_OPS = {
+    "conv3x3_s1_p1": ("conv", (4, 5, 3, 1, 1, 1), (2, 4, 24, 6)),
+    "conv3x3_s2_p1": ("conv", (4, 5, 3, 2, 1, 1), (2, 4, 24, 6)),
+    "conv1x1": ("conv", (4, 5, 1, 1, 0, 1), (2, 4, 24, 6)),
+    "depthwise3x3_s2_p1": ("conv", (4, 4, 3, 2, 1, 4), (2, 4, 24, 6)),
+    "conv4x4_s2_p1": ("conv", (4, 5, 4, 2, 1, 1), (2, 4, 24, 6)),
+    "depthwise4x4_s2_p1": ("conv", (4, 4, 4, 2, 1, 4), (2, 4, 24, 6)),
+    "pointwise1x1_p1": ("conv", (4, 5, 1, 1, 1, 1), (2, 4, 24, 6)),
+    "avgpool3_s2_p1": ("pool", None, (2, 4, 24, 6)),
+    "global_mean": ("mean", None, (2, 4, 24, 6)),
+    "nearest_x2": ("nearest", None, (2, 4, 12, 6)),
+    "resize_align_corners": ("resize", (48, 9), (2, 4, 6, 5)),
+    "dw_discriminator": ("d", (False,), (1, 3, 96, 32)),
+    "dwbn_discriminator_eval": ("d", (True,), (1, 3, 96, 32)),
+    "fc_discriminator": ("fc", None, (1, 3, 96, 32)),
+}
+
+
+def spatial_op(name):
+    """The module of ``SPATIAL_OPS[name]`` in float64, its parameters
+    drawn from a fixed seed (BN layers in eval mode, with drawn
+    statistics), or None for the parameterless ops."""
+    import torch.nn as nn
+
+    from dasemanticsegmentationaml_tpu_torch.models.discriminator import (
+        DepthWiseSepBNFCDiscriminator, DepthWiseSepFCDiscriminator,
+        FCDiscriminator)
+
+    kind, args, _ = SPATIAL_OPS[name]
+    if kind == "conv":
+        c_in, c_out, k, s, p, groups = args
+        module = nn.Conv2d(c_in, c_out, k, s, p, groups=groups)
+    elif kind == "pool":
+        return nn.AvgPool2d(3, 2, 1)
+    elif kind == "d":
+        module = (DepthWiseSepBNFCDiscriminator(3) if args[0]
+                  else DepthWiseSepFCDiscriminator(3))
+    elif kind == "fc":
+        module = FCDiscriminator(3)
+    else:
+        return None
+    rng = np.random.default_rng(7)
+    module = module.double()
+    with torch.no_grad():
+        for t in module.parameters():
+            t.copy_(torch.from_numpy(0.3 * rng.standard_normal(t.shape)))
+        for m in module.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.add_(1.0)
+                m.running_mean.copy_(torch.from_numpy(
+                    0.1 * rng.standard_normal(m.running_mean.shape)))
+                m.running_var.copy_(torch.from_numpy(
+                    rng.uniform(0.5, 1.5, m.running_var.shape)))
+    return module.eval()
+
+
+def _seed_of(text):
+    import zlib
+
+    return zlib.crc32(text.encode())
+
+
+def spatial_input(name):
+    """The op's float64 input and the output cotangent's generator."""
+    shape = SPATIAL_OPS[name][2]
+    rng = np.random.default_rng(_seed_of(name))
+    return rng.standard_normal(shape)
+
+
+def spatial_full(name, op, x):
+    """The unsharded op on the whole ``x``."""
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import mean_hw
+    from dasemanticsegmentationaml_tpu_torch.ops.resize import (
+        resize_bilinear_align_corners, upsample_nearest)
+
+    kind, args, _ = SPATIAL_OPS[name]
+    if kind == "mean":
+        return mean_hw(x)
+    if kind == "nearest":
+        return upsample_nearest(x, (2 * x.shape[2], 2 * x.shape[3]))
+    if kind == "resize":
+        return resize_bilinear_align_corners(x, args)
+    return op(x)
+
+
+def spatial_cotangent(name, shape):
+    rng = np.random.default_rng(_seed_of(name + "dy"))
+    return rng.standard_normal(shape)
+
+
+def banded_ops(rank, world, *, names):
+    """Each op of ``names`` on this rank's band of its input (a 1 x world
+    mesh), forward and the gradient of sum(y * dy) over this rank's band
+    of dy: {name: (y band, its global rows, dx band, the parameters'
+    gradients)}. The global mean's output is every rank's: only rank 0
+    adds its term."""
+    from dasemanticsegmentationaml_tpu_torch.parallel.spatial import (
+        Rows, create_mesh_spatial, keep_band, layer_rows)
+
+    torch.set_default_dtype(torch.float64)
+    mesh = create_mesh_spatial(1, world)
+    out = {}
+    for name in names:
+        kind, args, _ = SPATIAL_OPS[name]
+        op = spatial_op(name)
+        x_full = torch.from_numpy(spatial_input(name))
+        xs = keep_band(x_full, rank, world).clone().requires_grad_()
+        rows = mesh.even_rows(xs)
+        with mesh.banded():
+            if kind == "conv":
+                y, rows = mesh.conv_band(op, xs, rows)
+            elif kind == "pool":
+                y = mesh.pool_band(op, xs)
+                rows = layer_rows(rows, (rows.n - 1) // 2 + 1, 3, 2, 1)
+            elif kind == "mean":
+                y = mesh.mean_hw(xs)
+                rows = Rows((0, 1) + (1,) * (world - 1))
+            elif kind == "nearest":
+                y = mesh.upsample_nearest(xs, (2 * xs.shape[2],
+                                               2 * xs.shape[3]))
+                rows = mesh.even_rows(y)
+            elif kind == "resize":
+                y = mesh.resize_band(xs, (args[0] // world, args[1]))
+                rows = mesh.even_rows(y)
+            else:
+                y, rows = mesh.discriminator(op, xs)
+        with torch.no_grad():
+            full_shape = spatial_full(name, op, x_full).shape
+        dy = torch.from_numpy(spatial_cotangent(name, full_shape))
+        a, b = rows.band(rank)
+        if kind == "mean" and rank > 0:
+            dy = torch.zeros_like(dy)
+        (y * dy[:, :, a:b]).sum().backward()
+        grads = ({} if op is None else
+                 {k: p.grad.numpy().copy() for k, p in op.named_parameters()})
+        out[name] = (y.detach().numpy(), (a, b), xs.grad.numpy(), grads)
+    return out
+
+
+def spatial_steps(rank, world, *, spatial, state_path, d_paths, x, y, xt,
+                  cases, forward=False, fp64=False):
+    """On a (world / spatial) x ``spatial`` mesh, this rank's band of its
+    data shard of the global batch: ``forward``: BiSeNet's eval forward
+    (the main head upsampled, banded) and the fused eval prediction; then
+    one step a case from the weights of ``state_path`` (and
+    ``d_paths[kind]``): {case: (metrics or loss, G snapshot, D
+    snapshot)}. ``cases``: {name: None (the sync train step) or (D kind,
+    step_mode, d_head) (the DA step)}."""
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.models.discriminator import (
+        build_discriminator)
+    from dasemanticsegmentationaml_tpu_torch.parallel.mesh import (
+        make_sharded_da_step, make_sharded_train_step)
+    from dasemanticsegmentationaml_tpu_torch.parallel.spatial import (
+        create_mesh_spatial)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import predict
+    from dasemanticsegmentationaml_tpu_torch.train.optim import (
+        make_optimizer)
+    from dasemanticsegmentationaml_tpu_torch.utils.weights import (
+        load_reference_state)
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda.fused_ce import (
+        cross_entropy_upsampled_reference)
+
+    mesh = create_mesh_spatial(world // spatial, spatial)
+    dtype = torch.float64 if fp64 else torch.float32
+    xs, ys, xts = mesh.shard(torch.from_numpy(x).to(dtype),
+                             torch.from_numpy(y), torch.from_numpy(xt).to(dtype))
+    kw = {"ce": cross_entropy_upsampled_reference} if fp64 else {}
+    out = {}
+    if forward:
+        model = mesh.convert(_bisenet(state_path).eval())
+        with torch.no_grad(), mesh.banded():
+            out["forward"] = model(xs)[0].numpy()
+        out["predict"] = predict(model, xs, True, spatial=mesh).numpy()
+    for name, case in cases.items():
+        g = _bisenet(state_path).to(dtype)
+        if case is None:
+            opt = make_optimizer("sgd", trainable_parameters(g), 0.01,
+                                 momentum=0.9, weight_decay=1e-4)
+            step = make_sharded_train_step(g, opt, num_classes=19,
+                                           spatial=mesh, **kw)
+            out[name] = (float(step(xs, ys)), *_snapshot(rank, g))
+            continue
+        kind, mode, d_head = case
+        d = build_discriminator(19, *kind)
+        load_reference_state(d, torch.load(d_paths[kind], weights_only=True),
+                             strict=True)
+        d = d.to(dtype).train()
+        g_opt = make_optimizer("sgd", trainable_parameters(g), 0.01,
+                               momentum=0.9, weight_decay=5e-4)
+        d_opt = make_optimizer("adam", d.parameters(), 1e-3,
+                               betas=(0.9, 0.99))
+        step = make_sharded_da_step(g, d, g_opt, d_opt, num_classes=19,
+                                    lambda_adv=1e-3, d_head=d_head,
+                                    step_mode=mode, spatial=mesh, **kw)
+        m = step(xs, ys, xts)
+        out[name] = ({k: float(v) for k, v in m.items()},
+                     *_snapshot(rank, g, d))
+    return out
+
+
+def ohem_bands(rank, world, *, spatial, logits, labels, cases):
+    """``sync_ohem_cross_entropy`` on this rank's band of its data shard
+    of a (world / spatial) x ``spatial`` mesh, the losses gathered in the
+    global batch's order: {case: (the share, the band's gradient)}."""
+    from dasemanticsegmentationaml_tpu_torch.parallel.mesh import (
+        sync_ohem_cross_entropy)
+    from dasemanticsegmentationaml_tpu_torch.parallel.spatial import (
+        create_mesh_spatial)
+
+    mesh = create_mesh_spatial(world // spatial, spatial)
+    xs, ys = mesh.shard(torch.from_numpy(logits), torch.from_numpy(labels))
+    out = {}
+    for name, (threshold, keep) in cases.items():
+        x = xs.clone().requires_grad_()
+        share = sync_ohem_cross_entropy(x, ys, threshold, keep,
+                                        layout=(mesh.data_size, spatial))
+        share.backward()
+        out[name] = (float(share), x.grad.numpy())
+    return out
