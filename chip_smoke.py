@@ -246,6 +246,29 @@ else runs (``compare_baseline``).
                   step ms, halo exchanges and peak memory a rank. The
                   kernel phase runs the row windows too (first, middle
                   and last bands, taps past both edges).
+23. mesh-serve -- int8 eval on the height-sharded mesh and the
+                  multi-device serving artifacts, last, at 512x1024 with
+                  seeded weights (its int8 kernel with pad_h = 0 on each
+                  of two bands of conv_out.conv's (8, 256, 64, 128) and of
+                  the stem's (8, 3, 512, 1024), bf16, bit for bit against
+                  its plain version and the whole kernel's rows, device ms
+                  beside the whole conv's, runs right after the int8-kernel
+                  phase: late in a long process the profiler loses kernel
+                  records); two gloo ranks share cuda:0: 16 bf16 eval batches of 8 through the int8
+                  `all` model in two bands (calibrated whole) against one
+                  process's int8 eval (mIoU |Δ| <= 1e-3, labels held to
+                  one process's own agreement with each batch as two of 4
+                  less SPATIAL_BF16_SLACK; peak memory a rank against one
+                  process); the batch-sharded artifacts (bf16, int8 `all`)
+                  a rank at batch 8, replayed and eager, bit for bit
+                  against the one-device artifact on the same sub-batch,
+                  images/s; the height-sharded bf16 artifact at batch 1
+                  and 8 (its exchanges run over gloo: eager), labels held
+                  like the banded eval's, ms and exchanges a batch; every
+                  rank's upsample_argmax (whole and windowed) and int8_conv
+                  launches by its counters, held equal to its own profile;
+                  then serve.main over both kinds with --device
+                  cuda:0,cuda:0 on 8 PNGs.
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record: each kernel's launches on its
@@ -263,7 +286,11 @@ the upsample+argmax and int8 conv records add their launches through the
 serve phase's artifacts (``serve_launches``), the upsample+argmax and CE
 records their launches in the parallel phase's ranks
 (``parallel_launches``) and in the spatial phase's
-(``spatial_launches``). The last line is
+(``spatial_launches``), and the upsample+argmax and int8 conv records
+their launches in the mesh-serve phase's ranks (``mesh_launches``: the
+banded int8 eval, the batch-sharded and the height-sharded artifacts),
+the int8 conv record its band launches' device ms beside the whole
+conv's (``band_device_ms``). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -5273,6 +5300,414 @@ def phase_spatial(device, card):
     return launches
 
 
+#: the mesh-serve phase: its ranks' time limit, the calibration batches
+#: of its int8 model, the int8 shapes held in bands (conv_out.conv and the
+#: stem, INT8_CASES), the batches of the height-sharded artifact, the
+#: PNGs its runner serves
+MESH_TIMEOUT = 900
+MESH_CALIB_BATCHES = 2
+INT8_BAND_CASES = (INT8_CASES[0], INT8_CASES[1])
+MESH_SPATIAL_BATCHES = (1, 8)
+MESH_SERVE_IMAGES = 8
+
+
+def mesh_counts():
+    """The launch counters of the mesh-serve phase's kernels."""
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import (
+        upsample_argmax as ua)
+
+    return {"upsample_argmax": ua.LAUNCHES,
+            "upsample_argmax_window": ua.WINDOW_LAUNCHES,
+            "int8_conv": ic.LAUNCHES}
+
+
+def mesh_seen(prof):
+    """The profile's upsample_argmax and int8_conv calls (its GEMMs: one a
+    call, beside one prologue)."""
+    seen = kernel_launches_seen(prof, INT8_KERNEL_NAMES)
+    return {"upsample_argmax": seen[("upsample_argmax",
+                                     ("upsample_argmax_band_kernel",))],
+            "int8_conv": seen[("int8_conv", ("int8_conv_gemm_kernel",))],
+            "int8_prologue": seen[("int8_conv", (
+                "int8_conv_quantize_kernel", "int8_conv_im2col_kernel"))]}
+
+
+def mesh_frames(n=16):
+    """``n`` seeded uint8 512x1024 frames on the host (NHWC)."""
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(31).integers(
+        0, 256, (n, *SERVE_HW, 3), dtype=np.uint8))
+
+
+def int8_band_cases(device):
+    """The int8 kernel with pad_h = 0 on each of two bands of output rows
+    of INT8_BAND_CASES (bf16): the band's window (its rows and halo, zeros
+    outside the image, as SpatialMesh.exchange gives it) through the
+    kernel, bit for bit against the plain version on the same window and
+    against the whole kernel's rows; device ms of each band's launch and
+    of the whole conv's. Returns {case: (whole ms, [band ms])}."""
+    import torch
+    import torch.nn.functional as F
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    out = {}
+    for case in INT8_BAND_CASES:
+        _, _, _, _, _, ks, s, p = case
+        x, w8, out_mul, bias, inv = int8_inputs(device, case, "bfloat16",
+                                                seed=5)
+        args = (w8, ic.pack_weights(w8), out_mul, bias, inv, s)
+        whole = served("int8 whole", case, lambda: ic.int8_conv(x, *args, p))
+        padded = F.pad(x, (0, 0, p, p))
+        n_out = whole.shape[2]
+        bands = []
+        for o0, o1 in ((0, n_out // 2), (n_out // 2, n_out)):
+            win = padded[:, :, o0 * s:(o1 - 1) * s + ks].contiguous()
+            got = served("int8 band", (case, o0), lambda: ic.int8_conv(
+                win, *args, (0, p)))
+            plain = ic.int8_conv_reference(win, w8, out_mul, bias, inv, s,
+                                           (0, p))
+            check(torch.equal(got, plain),
+                  f"int8 band {case} rows {o0}:{o1}: the kernel differs "
+                  f"from its plain version")
+            check(torch.equal(got, whole[:, :, o0:o1]),
+                  f"int8 band {case} rows {o0}:{o1}: differs from the "
+                  f"whole kernel's rows")
+            bands.append(device_ms_or_events(
+                lambda: ic.int8_conv(win, *args, (0, p)), ("int8_conv",))[0])
+        whole_ms = device_ms_or_events(lambda: ic.int8_conv(x, *args, p),
+                                       ("int8_conv",))[0]
+        out[case] = (whole_ms, bands)
+        log("int8-band", f"{case} bf16: two bands with pad_h = "
+            f"0 bit for bit against the plain version and the whole "
+            f"kernel's rows; device ms a band {bands[0]:.4f} + "
+            f"{bands[1]:.4f} against the whole conv's {whole_ms:.4f}")
+    return out
+
+
+def mesh_rank(rank, world, init, out, device, arts):
+    """One of two gloo ranks sharing cuda:0 (mesh-serve phase), a 1 x 2
+    spatial mesh: the int8 ``all`` model calibrated whole and evaluated
+    in bands over 16 bf16 batches of 8 (profiled, counters reset before
+    and read after, peak memory), its band's labels; each batch-sharded
+    artifact (bf16, int8) on this rank's 8 of 16 frames, replayed and
+    eager, against the one-device artifact on them, timed; the
+    height-sharded artifact's program of this rank on its band of batch 1
+    and 8 (eager under gloo), timed, its exchanges counted."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch import serve
+    from dasemanticsegmentationaml_tpu_torch.ops.quantize import (
+        quantize_model)
+    from dasemanticsegmentationaml_tpu_torch.parallel import spatial as sp
+    from dasemanticsegmentationaml_tpu_torch.parallel.distributed import (
+        allreduce_counts, barrier, destroy, initialize)
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+    from dasemanticsegmentationaml_tpu_torch.utils import export as ex
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    initialize(init, world, rank, backend="gloo", device=device)
+    bf16 = torch.bfloat16
+    try:
+        mesh = sp.create_mesh_spatial(1, world)
+        res = {}
+        batches = eval_batches(device)
+        qmodel, _ = quantize_model(
+            seeded_g(device).eval(),
+            [images for images, _ in batches[:MESH_CALIB_BATCHES]],
+            amp_dtype=bf16)
+        mesh.convert(qmodel)
+        reset_eval_counts(ev)
+        before = mesh_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0, t0 = mesh.exchanges, time.perf_counter()
+        (hist, correct, total), prof = profiled(lambda: ev.eval_counts(
+            qmodel, batches, 19, prepare=lambda b: b, device=device,
+            amp_dtype=bf16, spatial=mesh))
+        seconds = time.perf_counter() - t0
+        after = mesh_counts()
+        peak = torch.cuda.max_memory_allocated()
+        exchanges = (mesh.exchanges - n0) / len(batches)
+        hist, correct, total = allreduce_counts(hist, correct, total)
+        preds = torch.stack([ev.predict(
+            qmodel, mesh.shard(images)[0], True, bf16, spatial=mesh).to(
+            torch.uint8).cpu() for images, _ in batches])
+        res["int8_eval"] = dict(
+            hist=hist.cpu(), correct=int(correct), total=total,
+            counts={k: after[k] - before[k] for k in after},
+            seen=mesh_seen(prof), peak=peak, preds=preds,
+            exchanges=exchanges, seconds=seconds, batches=len(batches))
+        del batches, qmodel, prof
+        torch.cuda.empty_cache()
+
+        frames = mesh_frames()
+        sub = frames[8 * rank:8 * (rank + 1)].pin_memory()
+        sub_dev = sub.to(device)
+        for kind in ("bf16", "int8"):
+            module = ex.load_exported(arts[f"sharded_{kind}"])
+            replayed = serve.Program(module, device)
+            eager = serve.Program(module, device, capture=False)
+            one = serve.Program(ex.load_exported(arts[f"one_{kind}"]),
+                                device, capture=False)
+            want = one(sub)
+            before = mesh_counts()
+            (got_replayed, got_eager), prof = profiled(
+                lambda: (replayed(sub), eager(sub)))
+            after = mesh_counts()
+            counts = {k: after[k] - before[k]
+                      + replayed.replayed.get(k, 0)
+                      - replayed.captured.get(k, 0) for k in after}
+            barrier()
+            replayed_ms = cuda_ms(lambda: replayed(sub_dev, to_host=False),
+                                  10)
+            barrier()
+            eager_ms = cuda_ms(lambda: eager(sub_dev, to_host=False), 5)
+            res[("sharded", kind)] = dict(
+                replayed_equal=bool(torch.equal(got_replayed, want)),
+                eager_equal=bool(torch.equal(got_eager, want)),
+                counts=counts, seen=mesh_seen(prof),
+                replayed_ms=replayed_ms, eager_ms=eager_ms)
+            del module, replayed, eager, one, prof
+
+        sp.serve_on(mesh)
+        program = serve.Program(ex.read_exported_spatial(
+            arts["spatial"], rank).program.module(), device,
+            capture=False)
+        band = frames.shape[1] // world
+        for b in MESH_SPATIAL_BATCHES:
+            mine = frames[:b, rank * band:(rank + 1) * band].contiguous()
+            before, n0 = mesh_counts(), mesh.exchanges
+            labels, prof = profiled(lambda: program(mine))
+            after = mesh_counts()
+            calls_exchanges = mesh.exchanges - n0
+            mine_dev = mine.to(device)
+            barrier()
+            ms = cuda_ms(lambda: program(mine_dev, to_host=False), 3,
+                         warmup=1)
+            res[("spatial", b)] = dict(
+                labels=labels.to(torch.uint8),
+                counts={k: after[k] - before[k] for k in after},
+                seen=mesh_seen(prof), exchanges=calls_exchanges, ms=ms)
+        torch.save(res, out)
+    finally:
+        sp.serve_on(None)
+        destroy()
+
+
+def phase_mesh_serve(device, card):
+    """int8 eval on the height-sharded mesh and the multi-device serving
+    artifacts (docstring, phase 23). Returns {kernel: {path: launches in
+    the ranks}}."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch import serve
+    from dasemanticsegmentationaml_tpu_torch.ops.metrics import per_class_iou
+    from dasemanticsegmentationaml_tpu_torch.ops.quantize import (
+        quantize_model)
+    from dasemanticsegmentationaml_tpu_torch.train import evaluate as ev
+    from dasemanticsegmentationaml_tpu_torch.utils import export as ex
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    h, w = SERVE_HW
+    launches = {"upsample_argmax": {}, "int8_conv": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        model = seeded_g(device).eval()
+        batches = eval_batches(device)
+        qmodel, _ = quantize_model(
+            model, [images for images, _ in batches[:MESH_CALIB_BATCHES]],
+            amp_dtype=bf16)
+        arts = {}
+        for name, fn, m in (
+                ("one_bf16", ex.export_inference, model),
+                ("sharded_bf16", ex.export_inference_sharded, model),
+                ("spatial", ex.export_inference_spatial, model),
+                ("one_int8", ex.export_inference, qmodel),
+                ("sharded_int8", ex.export_inference_sharded, qmodel)):
+            arts[name] = os.path.join(tmp, name + (
+                ".zip" if name == "spatial" else ".pt2"))
+            t0 = time.perf_counter()
+            extra = () if name.startswith("one") else (2,)
+            fn(m, h, w, *extra, amp_dtype=bf16, path=arts[name])
+            meta = ex.read_meta(arts[name])
+            check(meta.get("nr_devices", 1) == (1 if name.startswith("one")
+                                                 else 2)
+                  and ex.artifact_shard_dim(meta) == int(name == "spatial"),
+                  f"{name}: metadata {meta}")
+            log("mesh-serve", f"exported {name} in "
+                f"{time.perf_counter() - t0:.2f} s, "
+                f"{os.path.getsize(arts[name]) / 1e6:.1f} MB, ops "
+                f"{meta['ops']}")
+        check(ex.read_meta(arts["spatial"])["ops"] == [
+            "halo_exchange", "spatial_sum", "upsample_argmax_window"],
+            "the spatial artifact does not hold its exchanges, sums and "
+            "windowed kernel as nodes")
+
+        # one process's int8 eval, its memory and its labels' yardstick
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hist, correct, total = ev.eval_counts(
+            qmodel, batches, 19, prepare=lambda b: b, device=device,
+            amp_dtype=bf16)
+        peak_one = torch.cuda.max_memory_allocated()
+
+        def labels_of(parts):
+            return torch.stack([torch.cat([
+                ev.predict(qmodel, piece, True, bf16).to(torch.uint8).cpu()
+                for piece in images.chunk(parts)])
+                for images, _ in batches])
+
+        preds = labels_of(1)
+        yard = float((labels_of(2) == preds).float().mean())
+        miou = float(per_class_iou(hist.cpu()).mean())
+        # the one-device bf16 artifact's labels of the spatial frames, and
+        # its own agreement with batch 8 as two of 4
+        frames = mesh_frames()
+        one = serve.Program(ex.load_exported(arts["one_bf16"]), device,
+                            capture=False)
+        spatial_want = {b: one(frames[:b]) for b in MESH_SPATIAL_BATCHES}
+        yard_bf16 = float((torch.cat([one(frames[:4]), one(frames[4:8])])
+                           == spatial_want[8]).float().mean())
+        del batches, qmodel, model, one
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = spawn_parallel(mesh_rank, lambda i, store, out: (
+            i, 2, store, out, str(device), arts), 2, timeout=MESH_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+
+        # the banded int8 eval
+        got = [r["int8_eval"] for r in ranks]
+        got_miou = float(per_class_iou(got[0]["hist"]).mean())
+        same = float((torch.cat([g["preds"] for g in got], 2) == preds)
+                     .float().mean())
+        check(abs(got_miou - miou) <= 1e-3 and got[0]["total"] == total,
+              f"banded int8 eval: mIoU {got_miou} against {miou}")
+        check(same >= yard - SPATIAL_BF16_SLACK,
+              f"banded int8 eval: labels equal on {same}, one process with "
+              f"other conv shapes {yard}")
+        for r, g in enumerate(got):
+            n = g["batches"]
+            want = {"upsample_argmax": n, "upsample_argmax_window": n,
+                    "int8_conv": QUANT_BLOCKS["all"] * n}
+            check(g["counts"] == want and g["seen"]["upsample_argmax"] == n
+                  and g["seen"]["int8_conv"] == g["seen"]["int8_prologue"]
+                  == want["int8_conv"],
+                  f"banded int8 eval rank {r}: launches {g['counts']}, "
+                  f"profile {g['seen']}, want {want}")
+        launches["upsample_argmax"]["int8_eval"] = sum(
+            g["counts"]["upsample_argmax_window"] for g in got)
+        launches["int8_conv"]["int8_eval"] = sum(
+            g["counts"]["int8_conv"] for g in got)
+        log("mesh-serve", f"banded int8 eval (all, 16 bf16 batches of 8, "
+            f"two bands): mIoU {got_miou:.6f} against one process's "
+            f"{miou:.6f}, precision {got[0]['correct'] / total:.6f} against "
+            f"{int(correct) / total:.6f}; labels equal on {same:.6f} (one "
+            f"process's own with each batch as two of 4: {yard:.6f}); "
+            f"launches a rank {got[0]['counts']} = profile "
+            f"{got[0]['seen']}")
+        log("mesh-serve", f"{card} | banded int8 eval: "
+            f"{got[0]['seconds'] * 1e3 / got[0]['batches']:.2f} ms a batch "
+            f"on rank 0 (host clock, gloo exchanges included), "
+            f"{got[0]['exchanges']:.0f} halo exchanges a batch; peak "
+            f"{got[0]['peak'] / 2**30:.3f} / {got[1]['peak'] / 2**30:.3f} "
+            f"GiB a rank against one process's {peak_one / 2**30:.3f} GiB")
+
+        # the batch-sharded artifacts
+        for kind in ("bf16", "int8"):
+            got = [r[("sharded", kind)] for r in ranks]
+            per_call = {"upsample_argmax": 1, "upsample_argmax_window": 0,
+                        "int8_conv": QUANT_BLOCKS["all"] * (kind == "int8")}
+            for r, g in enumerate(got):
+                check(g["replayed_equal"] and g["eager_equal"],
+                      f"sharded {kind} rank {r}: the artifact differs from "
+                      f"the one-device artifact on the same sub-batch")
+                # warm-up, replay and the eager call
+                want = {k: 3 * v for k, v in per_call.items()}
+                check(g["counts"] == want
+                      and g["seen"]["upsample_argmax"]
+                      == want["upsample_argmax"]
+                      and g["seen"]["int8_conv"] == want["int8_conv"],
+                      f"sharded {kind} rank {r}: launches {g['counts']}, "
+                      f"profile {g['seen']}, want {want}")
+                for k in ("upsample_argmax", "int8_conv"):
+                    launches[k]["sharded_serve"] = launches[k].get(
+                        "sharded_serve", 0) + g["counts"][k]
+            log("mesh-serve", f"{card} | batch-sharded {kind} artifact, two "
+                f"gloo ranks on one card, 8 a rank: bit for bit against the "
+                f"one-device artifact; replayed {got[0]['replayed_ms']:.3f} "
+                f"/ {got[1]['replayed_ms']:.3f} ms a rank's batch "
+                f"({sum(8e3 / g['replayed_ms'] for g in got):.1f} images/s "
+                f"summed over the ranks, run together), eager "
+                f"{got[0]['eager_ms']:.3f} / {got[1]['eager_ms']:.3f} ms "
+                f"({sum(8e3 / g['eager_ms'] for g in got):.1f} images/s)")
+
+        # the height-sharded artifact
+        for b in MESH_SPATIAL_BATCHES:
+            got = [r[("spatial", b)] for r in ranks]
+            labels = torch.cat([g["labels"] for g in got], 1)
+            same_b = float((labels == spatial_want[b].to(torch.uint8))
+                           .float().mean())
+            check(same_b >= yard_bf16 - SPATIAL_BF16_SLACK,
+                  f"spatial artifact batch {b}: labels equal on {same_b}, "
+                  f"one process with other conv shapes {yard_bf16}")
+            for r, g in enumerate(got):
+                want = {"upsample_argmax": 1, "upsample_argmax_window": 1,
+                        "int8_conv": 0}
+                check(g["counts"] == want
+                      and g["seen"]["upsample_argmax"] == 1
+                      and g["exchanges"] > 0,
+                      f"spatial artifact batch {b} rank {r}: launches "
+                      f"{g['counts']}, profile {g['seen']}, exchanges "
+                      f"{g['exchanges']}")
+                launches["upsample_argmax"]["spatial_serve"] = launches[
+                    "upsample_argmax"].get("spatial_serve", 0) + 1
+            log("mesh-serve", f"{card} | height-sharded bf16 artifact, two "
+                f"gloo ranks on one card, batch {b}: labels equal to the "
+                f"one-device artifact's on {same_b:.6f} (its own batch 8 "
+                f"as two of 4: {yard_bf16:.6f}); {got[0]['ms']:.2f} / "
+                f"{got[1]['ms']:.2f} ms a batch a rank (eager, gloo "
+                f"exchanges included), {got[0]['exchanges']} exchanges a "
+                f"batch")
+
+        # the runner over both kinds, as a user runs it
+        images = os.path.join(tmp, "images")
+        os.makedirs(images)
+        from PIL import Image
+
+        for i in range(MESH_SERVE_IMAGES):
+            Image.fromarray(frames[i].numpy()).save(
+                os.path.join(images, f"m_{i}.png"))
+        for name, batch in (("sharded_bf16", 8), ("spatial", 2)):
+            outdir = os.path.join(tmp, f"out_{name}")
+            t0 = time.perf_counter()
+            stats = serve.main([arts[name], "--images", images, "--output",
+                                outdir, "--batch_size", str(batch),
+                                "--device", "cuda:0,cuda:0"])
+            got = torch.stack([torch.from_numpy(np.asarray(Image.open(
+                os.path.join(outdir, f"m_{i}_trainIds.png"))))
+                for i in range(MESH_SERVE_IMAGES)])
+            want = spatial_want[8].to(torch.uint8)
+            same_s = float((got == want).float().mean())
+            check(stats["images"] == MESH_SERVE_IMAGES
+                  and stats["ranks"] == 2
+                  and same_s >= yard_bf16 - SPATIAL_BF16_SLACK,
+                  f"serve.main {name}: {stats}, labels equal on {same_s}")
+            log("mesh-serve", f"serve.main {name} --device cuda:0,cuda:0: "
+                f"{stats['images']} images in "
+                f"{time.perf_counter() - t0:.1f} s (spawn included), shard "
+                f"dim {stats['shard_dim']}, labels equal to the one-device "
+                f"artifact's on {same_s:.6f}")
+    log("mesh-serve", f"passed: ranks {t_ranks:.1f} s, in all "
+        f"{time.perf_counter() - t_phase:.1f} s; launches in the ranks "
+        f"{launches}")
+    return launches
+
+
 def main(argv=None):
     import argparse
     import concurrent.futures as futures
@@ -5345,40 +5780,50 @@ def main(argv=None):
             f" s | {card}")
         return 0
 
-    max_err = phase_kernel(device)
-    ce_errs = phase_ce_kernel(device)
-    stdc_errs = phase_stdc_kernel(device)
-    int8 = phase_int8_kernel(device, card)
+    def timed(fn, *fn_args):
+        """``fn(*fn_args)``, its wall seconds logged (the budget of the
+        script's time limit)."""
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        log("time", f"{fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    max_err = timed(phase_kernel, device)
+    ce_errs = timed(phase_ce_kernel, device)
+    stdc_errs = timed(phase_stdc_kernel, device)
+    int8 = timed(phase_int8_kernel, device, card)
+    band_ms = timed(int8_band_cases, device)
     (copy_launches, copy_times, copy_others, copy_bound, copy_err,
-     copy_turns) = phase_copy_probe(device, card)
-    roll_launches, roll_times, roll_bound, roll_err = phase_roll_kernel(
-        device, card)
+     copy_turns) = timed(phase_copy_probe, device, card)
+    roll_launches, roll_times, roll_bound, roll_err = timed(
+        phase_roll_kernel, device, card)
     backbone = seeded_backbone(device)
-    stdc_launches, h = phase_stdc_path(device, backbone)
-    model = phase_model(device)
-    eval_launches = phase_slice()
-    int8_launches = phase_int8_slice()
-    train_launches = phase_train()
-    phase_train_parity(device)
-    phase_augment(device, card)
-    phase_da()
-    phase_da_parity(device)
-    phase_resume(device, card)
-    phase_da_resume(device, card)
-    times = phase_timing(device, model, card)
-    window = phase_eval_window(device, card)
-    time_train_prefetch(device, card)
-    stdc_times = time_stdc(device, backbone, h, card)
-    time_da_step(device, card)
-    phase_loader(card, headers, times["train"]["kernel"][0] / 8)
+    stdc_launches, h = timed(phase_stdc_path, device, backbone)
+    model = timed(phase_model, device)
+    eval_launches = timed(phase_slice)
+    int8_launches = timed(phase_int8_slice)
+    train_launches = timed(phase_train)
+    timed(phase_train_parity, device)
+    timed(phase_augment, device, card)
+    timed(phase_da)
+    timed(phase_da_parity, device)
+    timed(phase_resume, device, card)
+    timed(phase_da_resume, device, card)
+    times = timed(phase_timing, device, model, card)
+    window = timed(phase_eval_window, device, card)
+    timed(time_train_prefetch, device, card)
+    stdc_times = timed(time_stdc, device, backbone, h, card)
+    timed(time_da_step, device, card)
+    timed(phase_loader, card, headers, times["train"]["kernel"][0] / 8)
     # last: after its profiles of graph replays (the card's tracer has lost
     # kernel records there) a later profile once saw no kernel at all
-    serve_launches = phase_serve(device, card, window)
+    serve_launches = timed(phase_serve, device, card, window)
     # after the profiled phases: its parent process profiles nothing (its
     # ranks profile in fresh processes), and with it before the timing
     # phases a CatBottleneck profile there saw no kernel in three tries
-    parallel_launches = phase_parallel(device, card)
-    spatial_launches = phase_spatial(device, card)
+    parallel_launches = timed(phase_parallel, device, card)
+    spatial_launches = timed(phase_spatial, device, card)
+    mesh_launches = timed(phase_mesh_serve, device, card)
 
     argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
     ce_shape, ce_hw = CE_MAIN_CASES[0]
@@ -5420,7 +5865,8 @@ def main(argv=None):
                       plain_device_ms=argmax[("plain", "device")],
                       serve_launches=serve_launches["upsample_argmax"],
                       parallel_launches=parallel_launches["upsample_argmax"],
-                      spatial_launches=spatial_launches["upsample_argmax"])
+                      spatial_launches=spatial_launches["upsample_argmax"],
+                      mesh_launches=mesh_launches["upsample_argmax"])
         ] + [
         kernel_record(f"fused_ce_{part}", CE_SOURCE, CE_REPLACES,
                       train_launches[f"fused_ce_{part}"],
@@ -5454,6 +5900,10 @@ def main(argv=None):
                       cudnn_bf16_ms=int8["cudnn_bf16_ms"],
                       cudnn_bf16_device_ms=int8["cudnn_bf16_device_ms"],
                       serve_launches=serve_launches["int8_conv"],
+                      mesh_launches=mesh_launches["int8_conv"],
+                      band_device_ms={str(list(case)): {
+                          "whole": whole, "bands": bands}
+                          for case, (whole, bands) in band_ms.items()},
                       shape=int8["shape"], dtype="bfloat16")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -88,15 +88,23 @@ by rank 0, and the int64 counts are summed. Like JAX it stops on
 (``actual_hw``) that ``check_spatial_height`` refuses and on ``--sync_bn
 False``, with JAX's words. ``--eval_scan_window`` replays windows only
 where the mesh's collectives can be captured (NCCL) and otherwise runs
-eagerly, with a note; ``--quantize_int8`` evaluates the int8 model whole
-on every rank (the banded int8 forward is not ported).
+eagerly, with a note. ``--quantize_int8`` calibrates whole on every rank
+(a band cannot reproduce the whole tensor's percentile subsample), then
+evaluates the int8 model in bands (JAX cli.py:419-424): each int8 block
+fetches its halo and runs the kernel on its window
+(``ops/quantize.py::QuantBlock``).
 
-The multi-device exports (``--export_devices > 1``, ``--export_spatial``)
-stop with ``SystemExit("...: not ported yet: see ROADMAP.md")``;
-``--iter_size > 1``
-with ``--domain_adaptation`` and ``--export_batches`` with
-``--export_spatial`` stop with the JAX package's reasons, and so do the
-data-parallel flags JAX refuses. ``--use_gpu`` (``INERT_FLAGS``) is
+``--export_devices N`` writes an artifact served by N ranks (JAX
+cli.py:525-575): batch-sharded (``utils/export.py::
+export_inference_sharded``, a symbolic batch a rank; a bundle of
+batch-sharded programs under ``--export_batches``), or with
+``--export_spatial True`` height-sharded (``export_inference_spatial``:
+one program a rank, the exchanges held as nodes); on cards N must not
+exceed the card count (JAX's words). ``--export_spatial`` with one device
+is the one-device export, as in JAX. ``--iter_size > 1`` with
+``--domain_adaptation`` and ``--export_batches`` with ``--export_spatial``
+stop with the JAX package's reasons, and so do the data-parallel flags
+JAX refuses. ``--use_gpu`` (``INERT_FLAGS``) is
 accepted and does nothing; a value other than the default prints a note.
 
 Run:  python -m dasemanticsegmentationaml_tpu_torch.cli --dataset Cityspaces \
@@ -135,7 +143,7 @@ from .models.discriminator import build_discriminator
 from .ops.quantize import PRESET_FILTERS, quantize_model
 from .parallel.distributed import (assert_same_across_processes, barrier,
                                    destroy, initialize, local_batch_size,
-                                   process_rank)
+                                   process_rank, spawn)
 from .parallel.mesh import (check_per_replica_batch, make_sharded_da_step,
                             make_sharded_train_step, rank0_buffers)
 from .parallel.spatial import (check_spatial_height, create_mesh_spatial,
@@ -147,11 +155,11 @@ from .train.supervised import make_train_step, train
 from .utils import state_io
 from .utils.checkpoint import make_checkpoint_fn
 from .utils.config import build_parser, parse_args
-from .utils.export import export_inference, export_inference_bundle
+from .utils.export import (export_inference, export_inference_bundle,
+                           export_inference_sharded, export_inference_spatial)
 from .utils.logging_util import JsonlLogger, Profiler, make_writer
 from .utils.weights import load_pretrain, load_pretrain_discriminator
 
-NOT_PORTED = "not ported yet: see ROADMAP.md"
 #: JAX cli.py:603-611
 DA_ITER_SIZE = ("--iter_size > 1 is supervised-only: the 4-phase DA step "
                 "applies the phase-1 update before phase 2, which gradient "
@@ -171,10 +179,6 @@ SPATIAL_EAGER_NOTE = (
     "--eval_scan_window with --spatial_devices: the mesh's collectives run "
     "over gloo here and cannot be captured in a CUDA graph; evaluating "
     "eagerly (the counts are the same)")
-#: printed when --quantize_int8 meets a spatial mesh
-SPATIAL_INT8_NOTE = (
-    "--quantize_int8 with --spatial_devices: the int8 model is evaluated "
-    "whole on every rank (the banded int8 forward is not ported)")
 #: JAX cli.py:503-512
 EXPORT_BUNDLE_SPATIAL = (
     "--export_batches and --export_spatial cannot be combined: the bundle "
@@ -202,24 +206,31 @@ def resolve_device(cuda: str) -> torch.device:
 
 
 def check_ported(args) -> None:
-    """Stop on every flag whose path the port does not have yet, on
-    ``--iter_size > 1`` with ``--domain_adaptation`` as the JAX CLI does
-    (gradient accumulation cannot be grafted onto the 4-phase step), and
-    on ``--export_batches`` with ``--export_spatial`` (JAX cli.py:503-512;
-    checked first, so that the combination gets JAX's reason)."""
+    """Stop where the JAX CLI stops before any work: on ``--iter_size >
+    1`` with ``--domain_adaptation`` (gradient accumulation cannot be
+    grafted onto the 4-phase step), and on ``--export_batches`` with
+    ``--export_spatial`` (JAX cli.py:503-512). The refusals JAX's
+    multi-device exports make only once the model is evaluated come here,
+    before any work, in its words: a bundle's batch that ``--export_devices``
+    does not divide (JAX utils/export.py:158-160), a height the spatial
+    artifact cannot shard (:252, ``check_spatial_height``)."""
     if args.domain_adaptation and args.iter_size > 1:
         raise SystemExit(DA_ITER_SIZE)
     if args.export_batches and args.export_spatial:
         raise SystemExit(EXPORT_BUNDLE_SPATIAL)
-    unported = {
-        "--export_devices > 1 (the sharded artifact)":
-            args.export_devices > 1,
-        "--export_spatial (the height-sharded artifact)":
-            args.export_spatial,
-    }
-    for what, requested in unported.items():
-        if requested:
-            raise SystemExit(f"{what}: {NOT_PORTED}")
+    n = args.export_devices
+    if not (args.export_model and n > 1):
+        return
+    if args.export_batches:
+        for b in (int(b) for b in args.export_batches.split(",") if b):
+            if b % n:
+                raise SystemExit(f"batch {b} not divisible by the "
+                                 f"{n}-device mesh")
+    elif args.export_spatial:
+        try:
+            check_spatial_height(actual_hw(args)[0], n)
+        except ValueError as e:
+            raise SystemExit(str(e))
 
 
 def maybe_resume(args, module, optimizer, accumulator=None,
@@ -377,17 +388,31 @@ def export_model(args, model, amp_dtype, device) -> None:
     orientation the loader produces, so that it serves what the
     certifying eval measures; the upsample+argmax kernel by
     ``--use_fused_eval``; a bundle of concrete batches under
-    ``--export_batches`` (JAX cli.py:490-590)."""
+    ``--export_batches``; over ``--export_devices`` ranks, batch-sharded
+    or (``--export_spatial``) height-sharded (JAX cli.py:490-590)."""
     h, w = actual_hw(args)
+    n = args.export_devices
     kwargs = dict(use_fused_kernel=args.use_fused_eval, amp_dtype=amp_dtype,
                   device=device, path=args.export_model)
+    if n > 1 and device.type == "cuda" and torch.cuda.device_count() < n:
+        # JAX cli.py:527-533 / :546-549 (CPU ranks are processes: any n)
+        raise SystemExit(f"--export_devices {n} but only "
+                         f"{torch.cuda.device_count()} devices visible")
     if args.export_batches:
         batches = [int(b) for b in args.export_batches.split(",") if b]
-        export_inference_bundle(model, h, w, batches, **kwargs)
+        export_inference_bundle(model, h, w, batches, devices=n, **kwargs)
         kind = f"bundle of batches {sorted(set(batches))}"
+    elif n > 1 and args.export_spatial:
+        export_inference_spatial(model, h, w, n, **kwargs)
+        kind = "height-sharded, symbolic batch"
+    elif n > 1:
+        export_inference_sharded(model, h, w, n, **kwargs)
+        kind = "batch-sharded, symbolic batch a rank"
     else:
         export_inference(model, h, w, **kwargs)
         kind = "symbolic batch"
+    if n > 1:
+        kind += f", {n} ranks"
     print(f"exported serving artifact: {args.export_model} "
           f"({os.path.getsize(args.export_model)} bytes, {device.type}, "
           f"{kind})")
@@ -480,66 +505,12 @@ def resolve_devices(cuda: str, n: int):
     return [torch.device("cuda", first.index + r) for r in range(n)]
 
 
-def _rank_main(args, rank: int, world: int, device: str, init: str,
-               results) -> None:
-    """One rank of ``--num_devices`` (a spawned process): join the group,
-    run, and hand rank 0's result to the parent."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    elif "OMP_NUM_THREADS" not in os.environ:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    initialize(init, world, rank, device=device)
-    try:
-        result = run(args, device)
-    finally:
-        destroy()
-    if rank == 0:
-        results.put(result)
-
-
-def spawn_ranks(args, devices):
-    """``--num_devices``: one spawned process a device, meeting through a
-    file store in a fresh temporary directory; returns rank 0's result.
-    A rank that exits with an error ends the others and stops the run."""
-    import multiprocessing
-    import shutil
-    import tempfile
-    import time
-
-    ctx = multiprocessing.get_context("spawn")
-    store = tempfile.mkdtemp(prefix="dseg-ranks-")
-    results = ctx.SimpleQueue()
-    procs = [ctx.Process(target=_rank_main, name=f"rank-{r}",
-                         args=(args, r, len(devices), str(dev),
-                               "file://" + os.path.join(store, "store"),
-                               results))
-             for r, dev in enumerate(devices)]
-    result = None
-    try:
-        for p in procs:
-            p.start()
-        while any(p.is_alive() for p in procs):
-            # drained while rank 0 lives, so that its put never waits
-            if result is None and not results.empty():
-                result = results.get()
-            failed = [p for p in procs if p.exitcode not in (None, 0)]
-            if failed:
-                raise SystemExit(f"{failed[0].name} exited with code "
-                                 f"{failed[0].exitcode}; the other ranks "
-                                 f"were stopped")
-            time.sleep(0.2)
-        failed = [p for p in procs if p.exitcode != 0]
-        if failed:
-            raise SystemExit(f"{failed[0].name} exited with code "
-                             f"{failed[0].exitcode}")
-        return result if result is not None else results.get()
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-            p.join()
-        shutil.rmtree(store, ignore_errors=True)
+def _rank_main(rank: int, world: int, device: torch.device, args):
+    """One rank of ``--num_devices``: a process that
+    ``parallel/distributed.py::spawn`` started (a file store in a fresh
+    temporary directory; a rank that exits with an error ends the others
+    and stops the run); rank 0's result goes to the parent."""
+    return run(args, device)
 
 
 def main(argv=None):
@@ -560,7 +531,7 @@ def main(argv=None):
         finally:
             destroy()
     if world > 1:
-        return spawn_ranks(args, resolve_devices(args.cuda, world))
+        return spawn(_rank_main, resolve_devices(args.cuda, world), args)
     return run(args, resolve_device(args.cuda))
 
 
@@ -591,8 +562,6 @@ def _run(args, device, rank: int, world: int):
               f"{actual_hw(args)[0]} image rows a rank")
         if args.eval_scan_window > 1 and not spatial.capturable:
             print(SPATIAL_EAGER_NOTE)
-        if args.quantize_int8 and args.domain_shift:
-            print(SPATIAL_INT8_NOTE)
     else:
         data_rank, data_size = rank, world
     if world > 1 and spatial is None:
@@ -709,11 +678,9 @@ def _run(args, device, rank: int, world: int):
 
     # validation batches stay whole: eval counts each rank's band of them
     prepare_val = make_prepare(None, remap, sharded=False)
-    # the banded eval, but for an int8 model (evaluated whole)
-    spatial_eval = (None if spatial is None
-                    or (args.domain_shift and args.quantize_int8)
-                    else spatial)
-    if spatial_eval is not None:
+    if spatial is not None and not args.domain_shift:
+        # training converts before its optimizers take the parameters;
+        # eval-only converts once quantized and exported (below)
         spatial.convert(model)
 
     # --eval_scan_window: the windows captured by the first evaluation are
@@ -730,7 +697,7 @@ def _run(args, device, rank: int, world: int):
                               scan_window=args.eval_scan_window,
                               fetch_timeout=args.fetch_timeout,
                               graphs=graphs, cross_process_sum=eval_sharded,
-                              spatial=spatial_eval)
+                              spatial=spatial)
         # the best-checkpoint decision must not part (JAX cli.py:457-461)
         assert_same_across_processes(result[1], "val mIoU")
         return result
@@ -753,6 +720,10 @@ def _run(args, device, rank: int, world: int):
                 if rank == 0:
                     export_model(args, eval_model, amp_dtype, device)
                 barrier()
+            if spatial is not None:
+                # calibrated whole (above); its int8 blocks take the mesh
+                # and evaluate in bands (JAX cli.py:419-424)
+                spatial.convert(eval_model)
             precision, miou = evaluate_fn(eval_model)
             return {"precision": precision, "miou": miou}
         profiler = (Profiler(args.profile_dir)

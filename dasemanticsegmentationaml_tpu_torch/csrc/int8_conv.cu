@@ -10,8 +10,11 @@
 // What it computes, for output pixel (n, oh, ow) and channel co:
 //   q(v)  = clamp(rint(v * in_inv_scale), -127, 127)          (s8)
 //   acc   = sum over ci, kh, kw of q(x[n, ci, ih, iw]) * w[co, ci, kh, kw]
-//           with ih = oh*stride - pad + kh, iw = ow*stride - pad + kw and
+//           with ih = oh*stride - pad_h + kh, iw = ow*stride - pad_w + kw and
 //           zero outside the image                            (s32, exact)
+//           (pad_h and pad_w apart: a band of rows of the height-sharded
+//           mesh, parallel/spatial.py, arrives with its halo and takes
+//           pad_h = 0)
 //   y     = acc * out_mul[co] + bias[co], then ReLU           (fp32)
 //   out   = y in the output's type (fp32, or bf16 rounded to nearest even)
 // Each multiply and add is its own round-to-nearest fp32 operation
@@ -130,7 +133,7 @@ struct QuantArgs {
   int* counters;           // split-K tile counters to zero, or null
   int ncounters;
   int batch, cin, h, w, cq, vec;
-  int ks, stride, pad, out_h, out_w;  // im2col mode
+  int ks, stride, pad_h, pad_w, out_h, out_w;  // im2col mode
 };
 
 struct GemmArgs {
@@ -141,7 +144,8 @@ struct GemmArgs {
   void* out;              // (batch, cout, out_h, out_w), Tout
   int* partial;           // split-K: (tiles, splits, kBM * BN) s32, or null
   int* counters;          // split-K: (tiles,) zeroed by the prologue
-  int in_h, in_w, cq, stride, pad, out_h, out_w, cout, m, kpad, ksteps, relu;
+  int in_h, in_w, cq, stride, pad_h, pad_w, out_h, out_w, cout, m, kpad,
+      ksteps, relu;
   int tiles_m, tiles_n, splits, vec_out;
   int flag;               // byte offset of the split-K flag in shared memory
 };
@@ -451,7 +455,8 @@ __global__ void __launch_bounds__(kQThreads)
     if (m < m_total) {
       const int img = m / hw_out, p = m - img * hw_out;
       const int oh = p / a.out_w, ow = p - oh * a.out_w;
-      const int ih0 = oh * a.stride - a.pad, iw0 = ow * a.stride - a.pad;
+      const int ih0 = oh * a.stride - a.pad_h;
+      const int iw0 = ow * a.stride - a.pad_w;
       const Tin* xb = x + (size_t)img * a.cin * hw_in + ih0 * a.w + iw0;
       for (int ci = 0; ci < a.cin; ++ci) {
         const Tin* xc = xb + ci * hw_in;
@@ -521,8 +526,8 @@ __global__ void __launch_bounds__(Tile<BN>::kThreads, Tile<BN>::kMinBlocks)
       if (m < a.m) {
         const int img = m / hw_out, p = m - img * hw_out;
         const int oh = p / a.out_w, ow = p - oh * a.out_w;
-        rih[i] = oh * a.stride - a.pad;
-        riw[i] = ow * a.stride - a.pad;
+        rih[i] = oh * a.stride - a.pad_h;
+        riw[i] = ow * a.stride - a.pad_w;
         rbase[i] = ((img * a.in_h + rih[i]) * a.in_w + riw[i]) * cp;
       } else {
         rih[i] = -(1 << 20);  // never inside the image: zero-filled
@@ -771,8 +776,8 @@ extern "C" int int8_conv_quantize(const void* x, void* xq,
                                   const void* inv_scale, void* counters,
                                   int ncounters, int in_bf16, int im2col,
                                   int vec, int batch, int cin, int h, int w,
-                                  int cq, int ks, int stride, int pad,
-                                  int out_h, int out_w, int grid,
+                                  int cq, int ks, int stride, int pad_h,
+                                  int pad_w, int out_h, int out_w, int grid,
                                   void* stream) {
   QuantArgs a;
   a.x = x;
@@ -788,7 +793,8 @@ extern "C" int int8_conv_quantize(const void* x, void* xq,
   a.vec = vec;
   a.ks = ks;
   a.stride = stride;
-  a.pad = pad;
+  a.pad_h = pad_h;
+  a.pad_w = pad_w;
   a.out_h = out_h;
   a.out_w = out_w;
   if (im2col && cq * kPiece > kColMaxK) return (int)cudaErrorInvalidValue;
@@ -815,8 +821,8 @@ extern "C" int int8_conv_gemm(const void* xq, const void* wq,
                               const void* out_mul, const void* bias,
                               void* out, void* partial, void* counters,
                               int out_bf16, int ks, int bn, int in_h, int in_w,
-                              int cq, int stride, int pad, int out_h,
-                              int out_w, int cout, int m, int kpad, int relu,
+                              int cq, int stride, int pad_h, int pad_w,
+                              int out_h, int out_w, int cout, int m, int kpad, int relu,
                               int tiles_m, int tiles_n, int splits,
                               int vec_out, int grid, void* stream) {
   GemmArgs a;
@@ -831,7 +837,8 @@ extern "C" int int8_conv_gemm(const void* xq, const void* wq,
   a.in_w = in_w;
   a.cq = cq;
   a.stride = stride;
-  a.pad = pad;
+  a.pad_h = pad_h;
+  a.pad_w = pad_w;
   a.out_h = out_h;
   a.out_w = out_w;
   a.cout = cout;

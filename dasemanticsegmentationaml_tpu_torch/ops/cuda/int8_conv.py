@@ -18,9 +18,16 @@ a separate fp32 multiply and add, ReLU and the cast. The kernels compute
 the same operations in the same rounding, and integer sums in any order,
 so the two agree bit for bit.
 
+The padding is a ``(pad_h, pad_w)`` pair: a band of rows of the
+height-sharded mesh (``ops/quantize.py::QuantBlock``, ``parallel/
+spatial.py``) arrives with its halo rows and takes ``pad_h = 0``; an
+``int`` means both, as before.
+
 The custom op ``dseg::int8_conv`` is registered here: the kernels'
 launcher on CUDA, the plain version on the CPU, and a shape function that
-keeps the batch symbolic. The wrapper calls the op while ``torch.export``
+keeps the batch symbolic. Its padding is an ``int[2]``, which an ``int``
+fills as both, so an artifact saved when the op took one ``int`` loads
+and runs as it did. The wrapper calls the op while ``torch.export``
 traces, so that a serving artifact (``utils/export.py``) of an int8 model
 carries the kernels; eager calls on a card go to the launcher directly.
 """
@@ -29,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +68,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _INT_MAX = 2**31 - 1
 
+#: a conv's padding: one int for rows and columns, or (pad_h, pad_w)
+Padding = Union[int, Sequence[int]]
+
 
 class Plan(NamedTuple):
     """How ``int8_conv`` runs one shape (``plan``)."""
@@ -70,7 +80,8 @@ class Plan(NamedTuple):
     in_w: int
     ks: int        # the GEMM's conv over the scratch (1, 1, 0 in im2col)
     stride: int
-    pad: int
+    pad_h: int     # rows of zeros above and below (0 in im2col)
+    pad_w: int     # columns left and right
     out_h: int
     out_w: int
     m: int         # output pixels
@@ -86,24 +97,34 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def pad_pair(padding: Padding) -> Tuple[int, int]:
+    """``(pad_h, pad_w)`` of an ``int`` (both) or a pair."""
+    if isinstance(padding, int):
+        return padding, padding
+    pad_h, pad_w = (int(p) for p in padding)
+    return pad_h, pad_w
+
+
 def plan(n: int, cin: int, h: int, w: int, cout: int, ks: int, stride: int,
-         padding: int, sms: int) -> Plan:
+         padding: Padding, sms: int) -> Plan:
     """The kernels' plan for one call, a pure function of the shape and the
     card's SM count: the scratch layout (NHWC with the channels padded to
     a multiple of ``PIECE``, or im2col rows for a small Cin), K padded to
     whole stages, the GEMM's tile width (the smallest of ``TILE_NS`` that
     holds Cout, else the widest) and the split of K: where the tiles give
     fewer than ``WAVE_BLOCKS`` blocks an SM, K is split so that they give
-    about that many, into parts of at least ``MIN_SPLIT_STEPS`` stages."""
-    out_h = (h + 2 * padding - ks) // stride + 1
-    out_w = (w + 2 * padding - ks) // stride + 1
+    about that many, into parts of at least ``MIN_SPLIT_STEPS`` stages.
+    ``padding``: an ``int`` (rows and columns) or ``(pad_h, pad_w)``."""
+    pad_h, pad_w = pad_pair(padding)
+    out_h = (h + 2 * pad_h - ks) // stride + 1
+    out_w = (w + 2 * pad_w - ks) // stride + 1
     m = n * out_h * out_w
     if cin < PIECE:
         cq = _ceil(ks * ks * cin, PIECE)
-        geo = (out_h, out_w, 1, 1, 0)
+        geo = (out_h, out_w, 1, 1, 0, 0)
     else:
         cq = _ceil(cin, PIECE)
-        geo = (h, w, ks, stride, padding)
+        geo = (h, w, ks, stride, pad_h, pad_w)
     taps = geo[2] * geo[2]
     kpad = _ceil(taps * cq * PIECE, TILE_K) * TILE_K
     ksteps = kpad // TILE_K
@@ -122,9 +143,9 @@ def plan(n: int, cin: int, h: int, w: int, cout: int, ks: int, stride: int,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("int8_conv")
-    lib.int8_conv_quantize.argtypes = [_P] * 4 + [_I] * 15 + [_P]
+    lib.int8_conv_quantize.argtypes = [_P] * 4 + [_I] * 16 + [_P]
     lib.int8_conv_quantize.restype = _I
-    lib.int8_conv_gemm.argtypes = [_P] * 7 + [_I] * 19 + [_P]
+    lib.int8_conv_gemm.argtypes = [_P] * 7 + [_I] * 20 + [_P]
     lib.int8_conv_gemm.restype = _I
     lib.int8_conv_gemm_blocks_per_sm.argtypes = [_I] * 4
     lib.int8_conv_gemm_blocks_per_sm.restype = _I
@@ -200,24 +221,25 @@ def quantize_activation(x: torch.Tensor,
 
 def quantize_input_reference(x: torch.Tensor, inv_scale: torch.Tensor,
                              ks: int, stride: int,
-                             padding: int) -> torch.Tensor:
+                             padding: Padding) -> torch.Tensor:
     """Plain version of the prologue: the scratch that the GEMM of
     ``plan`` reads for a (ks, stride, padding) conv of ``x``, (N, in_h,
     in_w, cq * 16) int8. Each value as the kernel takes it
     (``__fmul_rn``, then ``cvt.rni``: round half to even, NaN to 0,
     saturated, then clamped to +-127); NHWC with the channels zero-padded,
     or in im2col mode (Cin < ``PIECE``) each output pixel's K = (kh, kw,
-    ci), the input zero-padded by the conv's padding, the row zero-padded
-    to whole pieces."""
+    ci), the input zero-padded by the conv's padding (``(pad_h, pad_w)``
+    or an ``int``), the row zero-padded to whole pieces."""
     n, cin, h, w = x.shape
-    p = plan(n, cin, h, w, 1, ks, stride, padding, 1)
+    pad_h, pad_w = pad_pair(padding)
+    p = plan(n, cin, h, w, 1, ks, stride, (pad_h, pad_w), 1)
     v = x.float() * inv_scale
     v = torch.where(torch.isnan(v), torch.zeros_like(v), torch.round(v))
     q = v.clamp(-127, 127).to(torch.int8)
     if not p.im2col:
         rows = q.permute(0, 2, 3, 1)
     else:
-        qp = F.pad(q, (padding,) * 4)
+        qp = F.pad(q, (pad_w, pad_w, pad_h, pad_h))
         rows = torch.stack([
             qp[:, :, kh:kh + stride * (p.out_h - 1) + 1:stride,
                kw:kw + stride * (p.out_w - 1) + 1:stride]
@@ -228,16 +250,17 @@ def quantize_input_reference(x: torch.Tensor, inv_scale: torch.Tensor,
 
 def int8_conv_reference(x: torch.Tensor, w_int8: torch.Tensor,
                         out_mul: torch.Tensor, bias: torch.Tensor,
-                        in_inv_scale: torch.Tensor, stride: int, padding: int,
-                        relu: bool = True,
+                        in_inv_scale: torch.Tensor, stride: int,
+                        padding: Padding, relu: bool = True,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
     """Plain PyTorch version (JAX quantize.py:108-128 in NCHW/OIHW): the
     int32 sums exactly, by a float64 convolution of the int8 values, then
-    ``acc * out_mul + bias`` as two fp32 operations, ReLU, the cast."""
+    ``acc * out_mul + bias`` as two fp32 operations, ReLU, the cast.
+    ``padding``: an ``int`` or ``(pad_h, pad_w)``."""
     xq = quantize_activation(x, in_inv_scale)
     acc = F.conv2d(xq.double(), w_int8.double(), stride=stride,
-                   padding=padding).to(torch.int32)
+                   padding=pad_pair(padding)).to(torch.int32)
     y = acc.float() * out_mul.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1)
     if relu:
         y = torch.relu(y)
@@ -246,7 +269,7 @@ def int8_conv_reference(x: torch.Tensor, w_int8: torch.Tensor,
 
 def int8_conv(x: torch.Tensor, w_int8: torch.Tensor, w_packed: torch.Tensor,
               out_mul: torch.Tensor, bias: torch.Tensor,
-              in_inv_scale: torch.Tensor, stride: int, padding: int,
+              in_inv_scale: torch.Tensor, stride: int, padding: Padding,
               relu: bool = True,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(N, Cin, H, W) contiguous fp32/bf16 ``x`` -> (N, Cout, Ho, Wo) of
@@ -254,7 +277,9 @@ def int8_conv(x: torch.Tensor, w_int8: torch.Tensor, w_packed: torch.Tensor,
     ``in_inv_scale`` (an fp32 scalar tensor), convolve with the int8
     OIHW ``w_int8`` (square kernel 1 or 3, groups 1), then ``acc *
     out_mul + bias`` (fp32, per output channel) and ReLU.
-    ``w_packed``: ``pack_weights(w_int8)``.
+    ``w_packed``: ``pack_weights(w_int8)``. ``padding``: an ``int`` (rows
+    and columns) or ``(pad_h, pad_w)``; a band of the height-sharded mesh
+    passes its halo rows in ``x`` and ``pad_h = 0``.
 
     While ``torch.export`` traces, this calls the custom op
     ``dseg::int8_conv``, so that the traced graph (``utils/export.py``)
@@ -274,7 +299,7 @@ def int8_conv(x: torch.Tensor, w_int8: torch.Tensor, w_packed: torch.Tensor,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     args = (x, w_int8, w_packed, out_mul, bias, in_inv_scale, stride,
-            padding, relu, out_dtype)
+            list(pad_pair(padding)), relu, out_dtype)
     if x.device.type == "cuda" and not torch.compiler.is_exporting():
         return _int8_conv_launch(*args)
     return _int8_conv_op(*args)
@@ -300,12 +325,19 @@ def _check(x: torch.Tensor, w_int8: torch.Tensor,
         raise TypeError(f"weights must be int8, got {w_int8.dtype}")
 
 
+#: the op's schema: ``int[2] padding`` takes ``(pad_h, pad_w)``, and an
+#: ``int`` fills both (an artifact saved with the one-int schema loads)
+_SCHEMA = ("(Tensor x, Tensor w_int8, Tensor w_packed, Tensor out_mul, "
+           "Tensor bias, Tensor in_inv_scale, int stride, int[2] padding, "
+           "bool relu, ScalarType out_dtype) -> Tensor")
+
+
 @torch.library.custom_op(f"{OP_NAMESPACE}::int8_conv", mutates_args=(),
-                         device_types="cpu")
+                         device_types="cpu", schema=_SCHEMA)
 def _int8_conv_op(x: torch.Tensor, w_int8: torch.Tensor,
                   w_packed: torch.Tensor, out_mul: torch.Tensor,
                   bias: torch.Tensor, in_inv_scale: torch.Tensor, stride: int,
-                  padding: int, relu: bool,
+                  padding: Sequence[int], relu: bool,
                   out_dtype: torch.dtype) -> torch.Tensor:
     """``dseg::int8_conv`` on the CPU: the plain version."""
     return int8_conv_reference(x, w_int8, out_mul, bias, in_inv_scale,
@@ -317,8 +349,9 @@ def _int8_conv_shape(x, w_int8, w_packed, out_mul, bias, in_inv_scale,
                      stride, padding, relu, out_dtype):
     n, _, h, w = x.shape
     cout, _, ks, _ = w_int8.shape
-    out_h = (h + 2 * padding - ks) // stride + 1
-    out_w = (w + 2 * padding - ks) // stride + 1
+    pad_h, pad_w = pad_pair(padding)
+    out_h = (h + 2 * pad_h - ks) // stride + 1
+    out_w = (w + 2 * pad_w - ks) // stride + 1
     return x.new_empty((n, cout, out_h, out_w), dtype=out_dtype)
 
 
@@ -326,7 +359,7 @@ def _int8_conv_shape(x, w_int8, w_packed, out_mul, bias, in_inv_scale,
 def _int8_conv_launch(x: torch.Tensor, w_int8: torch.Tensor,
                       w_packed: torch.Tensor, out_mul: torch.Tensor,
                       bias: torch.Tensor, in_inv_scale: torch.Tensor,
-                      stride: int, padding: int, relu: bool,
+                      stride: int, padding: Sequence[int], relu: bool,
                       out_dtype: torch.dtype) -> torch.Tensor:
     """``dseg::int8_conv`` on a card: the prologue, then the GEMM. A loaded
     artifact calls the op directly, so the checks run here again, with
@@ -337,14 +370,15 @@ def _int8_conv_launch(x: torch.Tensor, w_int8: torch.Tensor,
     cout, _, ks, _ = w_int8.shape
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (N, C, H, W)")
-    if stride < 1 or padding < 0 or min(
-            (h + 2 * padding - ks) // stride, (w + 2 * padding - ks) // stride
+    pad_h, pad_w = pad_pair(padding)
+    if stride < 1 or min(pad_h, pad_w) < 0 or min(
+            (h + 2 * pad_h - ks) // stride, (w + 2 * pad_w - ks) // stride
     ) < 0:
         raise ValueError(f"empty output: {tuple(x.shape)}, stride {stride}, "
                          f"padding {padding}")
     index = x.device.index
     sms = sm_count(index)
-    p = plan(n, cin, h, w, cout, ks, stride, padding, sms)
+    p = plan(n, cin, h, w, cout, ks, stride, (pad_h, pad_w), sms)
     for t, shape, dtype in ((w_packed, (cout, p.kpad), torch.int8),
                             (out_mul, (cout,), torch.float32),
                             (bias, (cout,), torch.float32),
@@ -389,16 +423,16 @@ def _int8_conv_launch(x: torch.Tensor, w_int8: torch.Tensor,
         x.data_ptr(), xq.data_ptr(), in_inv_scale.data_ptr(),
         counters.data_ptr() if counters is not None else None,
         tiles if counters is not None else 0, int(in_bf16), int(p.im2col),
-        int(vec_in), n, cin, h, w, p.cq, ks, stride, padding, p.out_h,
+        int(vec_in), n, cin, h, w, p.cq, ks, stride, pad_h, pad_w, p.out_h,
         p.out_w, q_grid, stream), "int8_conv (quantize)")
     check_launch(lib.int8_conv_gemm(
         xq.data_ptr(), w_packed.data_ptr(), out_mul.data_ptr(),
         bias.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
         counters.data_ptr() if counters is not None else None,
-        int(out_bf16), p.ks, p.tile_n, p.in_h, p.in_w, p.cq, p.stride, p.pad,
-        p.out_h, p.out_w, cout, p.m, p.kpad, int(relu), p.tiles_m,
-        p.tiles_n, p.splits, int(vec_out), g_grid, stream),
+        int(out_bf16), p.ks, p.tile_n, p.in_h, p.in_w, p.cq, p.stride,
+        p.pad_h, p.pad_w, p.out_h, p.out_w, cout, p.m, p.kpad, int(relu),
+        p.tiles_m, p.tiles_n, p.splits, int(vec_out), g_grid, stream),
         "int8_conv (gemm)")
     LAUNCHES += 1
     return out

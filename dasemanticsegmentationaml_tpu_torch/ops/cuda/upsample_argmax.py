@@ -31,6 +31,12 @@ those rows, rebased to the band's first row, the band's rows as ``h`` and
 ``y1 - y0`` as the output height. The kernel reads ``h`` only as the
 plane's size and ``H`` only as its own output's height, so its source is
 the same for a window; a window's taps are cached apart (``taps_on``).
+The custom op ``dseg::upsample_argmax_window(Tensor logits, int in_h, int
+out_h, int out_w, int base, int y0, int y1) -> Tensor`` (``in_h`` and
+``out_h`` the global logits and output heights) is the window's node in a
+height-sharded serving artifact (``utils/export.py::
+export_inference_spatial``): the same launch on CUDA, the plain version on
+the CPU, a (B, y1 - y0, out_w) shape function.
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ from .build import check_launch, current_stream, load_library, sm_count
 #: kernel launches made by ``upsample_argmax`` in this process; a run sets
 #: it to 0 and reads it afterwards to show the path went through the kernel
 LAUNCHES = 0
+#: of those, the launches of a row window (the height-sharded eval and
+#: serving)
+WINDOW_LAUNCHES = 0
 
 #: threads per block (csrc/upsample_argmax.cu::kThreads; ``_library``
 #: checks that the two agree)
@@ -132,7 +141,8 @@ def upsample_argmax(logits: torch.Tensor, out_hw: Tuple[int, int],
     global logits starting at row ``window.base`` and holding every tap of
     the global output rows ``[window.y0, window.y1)``; ``out_hw`` is those
     rows' (y1 - y0, W). The result is those rows of the full call's, bit
-    for bit. A window is not exported (no custom op takes it)."""
+    for bit. While exporting (and on the CPU) a window calls the op
+    ``dseg::upsample_argmax_window``."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     _check(logits, out_h, out_w)
     if logits.device.type not in ("cpu", "cuda"):
@@ -140,9 +150,10 @@ def upsample_argmax(logits: torch.Tensor, out_hw: Tuple[int, int],
     if window is not None:
         window = RowWindow(*(int(v) for v in window))
         check_window(window, logits.shape[2], out_h)
-        if logits.device.type == "cuda":
+        if logits.device.type == "cuda" and not torch.compiler.is_exporting():
             return _launch(logits, out_h, out_w, window)
-        return upsample_argmax_reference(logits, (out_h, out_w), window)
+        return _window_op(logits, window.h, window.H, out_w, window.base,
+                          window.y0, window.y1)
     if logits.device.type == "cuda" and not torch.compiler.is_exporting():
         return _upsample_argmax_launch(logits, out_h, out_w)
     return _upsample_argmax_op(logits, out_h, out_w)
@@ -187,11 +198,38 @@ def _upsample_argmax_launch(logits: torch.Tensor, out_h: int,
     return _launch(logits, out_h, out_w, None)
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::upsample_argmax_window",
+                         mutates_args=(), device_types="cpu")
+def _window_op(logits: torch.Tensor, in_h: int, out_h: int, out_w: int,
+               base: int, y0: int, y1: int) -> torch.Tensor:
+    """``dseg::upsample_argmax_window`` on the CPU: the plain version of
+    the window ``RowWindow(y0, y1, in_h, out_h, base)``."""
+    return upsample_argmax_reference(logits, (y1 - y0, out_w),
+                                     RowWindow(y0, y1, in_h, out_h, base))
+
+
+@_window_op.register_fake
+def _window_shape(logits, in_h, out_h, out_w, base, y0, y1):
+    return logits.new_empty((logits.shape[0], y1 - y0, out_w),
+                            dtype=torch.int32)
+
+
+@_window_op.register_kernel("cuda")
+def _window_launch(logits: torch.Tensor, in_h: int, out_h: int, out_w: int,
+                   base: int, y0: int, y1: int) -> torch.Tensor:
+    """``dseg::upsample_argmax_window`` on a card: one launch over the
+    window's rows (checked again, as a loaded artifact calls it)."""
+    window = RowWindow(y0, y1, in_h, out_h, base)
+    _check(logits, y1 - y0, out_w)
+    check_window(window, logits.shape[2], y1 - y0)
+    return _launch(logits, y1 - y0, out_w, window)
+
+
 def _launch(logits: torch.Tensor, out_h: int, out_w: int,
             window: Optional[RowWindow]) -> torch.Tensor:
     """One launch of the kernel over ``out_h`` output rows: all of them,
     or the window's from its rebased taps."""
-    global LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES
     b, c, h, w = logits.shape
     if max(b * c * h * w, b * out_h * out_w, 4 * w) > _INT_MAX:
         raise ValueError("the shape exceeds the kernel's 32-bit indices: "
@@ -213,4 +251,5 @@ def _launch(logits: torch.Tensor, out_h: int, out_w: int,
                     rows, int(staged), current_stream(dev)),
                  "upsample_argmax")
     LAUNCHES += 1
+    WINDOW_LAUNCHES += window is not None
     return out

@@ -103,13 +103,14 @@ def quantize_weights_per_channel(
 
 
 def int8_conv_epilogue(x: torch.Tensor, quant: Dict[str, torch.Tensor],
-                       stride: int, padding: int, relu: bool = True,
+                       stride: int, padding, relu: bool = True,
                        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Quantize ``x``, run the s8 x s8 -> s32 conv, apply the fp32
     scale/bias(/ReLU) epilogue and cast to ``dtype`` (JAX :108-128).
     ``quant``: ``w_int8`` (OIHW), ``w_packed`` (the kernel's rows),
     ``out_mul`` and ``bias`` (fp32, per output channel; BN folded),
-    ``in_inv_scale`` (fp32 scalar)."""
+    ``in_inv_scale`` (fp32 scalar). ``padding``: an ``int``, or ``(pad_h,
+    pad_w)`` (a band of the height-sharded mesh: ``pad_h = 0``)."""
     return int8_conv(x.contiguous(), quant["w_int8"], quant["w_packed"],
                      quant["out_mul"], quant["bias"], quant["in_inv_scale"],
                      stride, padding, relu, dtype)
@@ -156,6 +157,9 @@ class QuantBlock(nn.Module):
     #: quant collection, {'disabled'} when ``filter_fn`` left it in fp
     calib: Optional[Dict[str, torch.Tensor]] = None
     quant: Optional[Dict[str, torch.Tensor]] = None
+    #: the height-sharded mesh (``parallel/spatial.py::SpatialMesh.
+    #: convert`` sets it on an int8 block)
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant_mode == "int8":
@@ -166,13 +170,34 @@ class QuantBlock(nn.Module):
                     "int8 block has no quant entry; run quantize_model "
                     "(collect_calibration + build_quant_collection) first")
             if "disabled" not in self.quant:
-                return int8_conv_epilogue(
-                    x, self.quant, stride=self.conv.stride[0],
-                    padding=self.conv.padding[0], relu=True,
-                    dtype=_compute_dtype(x))
+                return self._int8_forward(x)
         elif self.quant_mode == "calib" and not self.training:
             record_input_absmax(self, x)
         return F.relu(self.bn(self.conv(x)))
+
+    def _int8_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``int8_conv_epilogue`` of ``x``. Inside the mesh's
+        ``banded()``, ``x`` is this rank's band: the block fetches the
+        rows its output band reads (``SpatialMesh.conv_window``: the
+        halo, zeros outside the image, exchanged in ``x``'s dtype) and
+        convolves them with no row padding; the int8 sums are exact and
+        the epilogue elementwise, so the band is the whole block's rows
+        bit for bit (XLA partitions JAX :108 by height alike). A 1×1 s1
+        block reads no halo and takes its input as it comes (a band, or
+        the context path's replicated (B, C, 1, 1) mean). The mesh is the
+        block's, or its ``conv``'s where the model was converted before it
+        was quantized."""
+        conv = self.conv
+        padding = conv.padding[0]
+        mesh = self.mesh if self.mesh is not None else getattr(
+            conv, "mesh", None)
+        halo = (conv.kernel_size[0], conv.stride[0], padding) != (1, 1, 0)
+        if mesh is not None and mesh.active and halo:
+            x, _ = mesh.conv_window(conv, x, mesh.even_rows(x))
+            padding = (0, conv.padding[1])
+        return int8_conv_epilogue(x, self.quant, stride=conv.stride[0],
+                                  padding=padding, relu=True,
+                                  dtype=_compute_dtype(x))
 
 
 def quant_blocks(model: nn.Module):

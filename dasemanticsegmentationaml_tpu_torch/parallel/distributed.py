@@ -89,6 +89,72 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
+def _spawned(fn, rank: int, world: int, device: str, init: str,
+             backend: Optional[str], results, args) -> None:
+    """One rank of ``spawn`` (a spawned process): join the group, run
+    ``fn``, and hand rank 0's result to the parent."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    elif "OMP_NUM_THREADS" not in os.environ:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize(init, world, rank, backend=backend, device=device)
+    try:
+        result = fn(rank, world, device, *args)
+    finally:
+        destroy()
+    if rank == 0:
+        results.put(result)
+
+
+def spawn(fn, devices, *args, backend: Optional[str] = None):
+    """``fn(rank, world, device, *args)`` in one spawned process a device
+    of ``devices``, the processes one group (``backend``: by
+    ``initialize``'s rule where None) meeting through a file store in a
+    fresh temporary directory; returns rank 0's result. A rank that exits
+    with an error ends the others and stops the run. ``fn`` must be
+    importable (a spawned rank re-imports its module and the caller's
+    ``__main__``)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    store = tempfile.mkdtemp(prefix="dseg-ranks-")
+    results = ctx.SimpleQueue()
+    procs = [ctx.Process(target=_spawned, name=f"rank-{r}",
+                         args=(fn, r, len(devices), str(dev),
+                               "file://" + os.path.join(store, "store"),
+                               backend, results, args))
+             for r, dev in enumerate(devices)]
+    result = None
+    try:
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            # drained while rank 0 lives, so that its put never waits
+            if result is None and not results.empty():
+                result = results.get()
+            failed = [p for p in procs if p.exitcode not in (None, 0)]
+            if failed:
+                raise SystemExit(f"{failed[0].name} exited with code "
+                                 f"{failed[0].exitcode}; the other ranks "
+                                 f"were stopped")
+            time.sleep(0.2)
+        failed = [p for p in procs if p.exitcode != 0]
+        if failed:
+            raise SystemExit(f"{failed[0].name} exited with code "
+                             f"{failed[0].exitcode}")
+        return result if result is not None else results.get()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def destroy() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -44,7 +44,21 @@ spatial index ``r % S``, and every exchange is explicit:
   the context path's ``conv_avg``), whose (B, C, 1, 1) inputs every
   spatial rank holds whole, sync over the data group only, so that their
   count is the global batch's. Outside ``banded()`` every converted
-  module computes as before.
+  module computes as before. A ``QuantBlock`` of an int8 model
+  (``ops/quantize.py``) keeps its ``conv`` child and takes the mesh: in
+  ``banded()`` it fetches its halo (``conv_window``) and runs the int8
+  kernel on the window with no row padding, which is the whole block's
+  rows bit for bit (integer sums, an elementwise epilogue).
+* Serving (``utils/export.py::export_inference_spatial``): a band's
+  forward is traced, one program a spatial rank, with a mesh that has no
+  group (``SpatialMesh.for_export``). While ``torch.export`` traces, an
+  exchange is the custom op ``dseg::halo_exchange`` and a global mean's
+  group sum ``dseg::spatial_sum`` (JAX's artifact holds GSPMD's
+  collective-permutes, JAX ``utils/export.py:225-265``): each node
+  records its geometry (the partition, the rows each band reads, the
+  spatial index it was traced for), and at run time reads the group from
+  the mesh the serving rank registers (``serve_on``). Only the forward:
+  training keeps the autograd functions.
 """
 
 from __future__ import annotations
@@ -52,7 +66,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +74,8 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda import OP_NAMESPACE
+from ..ops.quantize import QuantBlock
 from ..ops.resize import RowWindow, _align_corners_taps, upsample_nearest
 from .distributed import barrier, collective_device
 from .sync_bn import SyncBatchNorm2d, convert_sync_batchnorm
@@ -178,16 +194,7 @@ class _Halo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, plan: HaloPlan, mesh: "SpatialMesh"):
         ctx.plan, ctx.mesh, ctx.rows = plan, mesh, x.shape[2]
-        b, c, _, w = x.shape
-        out = x.new_zeros((b, c, plan.length, w))
-        if plan.own is not None:
-            a, e, at = plan.own
-            out[:, :, at:at + e - a] = x[:, :, a:e]
-        got = mesh.p2p([(p, x[:, :, a:e]) for p, a, e in plan.send],
-                       [(p, (b, c, e - a, w)) for p, a, e in plan.recv], x)
-        for (_, a, e), t in zip(plan.recv, got):
-            out[:, :, a:e] = t
-        return out
+        return _halo_window(x, plan, mesh)
 
     @staticmethod
     def backward(ctx, g):
@@ -202,6 +209,82 @@ class _Halo(torch.autograd.Function):
         for (_, a, e), t in zip(plan.send, got):
             dx[:, :, a:e] += t
         return dx, None, None
+
+
+def _halo_window(x: torch.Tensor, plan: HaloPlan,
+                 mesh: "SpatialMesh") -> torch.Tensor:
+    """The window ``plan`` describes: this rank's own rows, the peers'
+    received, zeros outside the image."""
+    b, c, _, w = x.shape
+    out = x.new_zeros((b, c, plan.length, w))
+    if plan.own is not None:
+        a, e, at = plan.own
+        out[:, :, at:at + e - a] = x[:, :, a:e]
+    got = mesh.p2p([(p, x[:, :, a:e]) for p, a, e in plan.send],
+                   [(p, (b, c, e - a, w)) for p, a, e in plan.recv], x)
+    for (_, a, e), t in zip(plan.recv, got):
+        out[:, :, a:e] = t
+    return out
+
+
+#: the mesh of a serving rank, read by the ops of a loaded spatial
+#: artifact (``serve_on``)
+_SERVING: Dict[str, "SpatialMesh"] = {}
+
+
+def serve_on(mesh: Optional["SpatialMesh"]) -> None:
+    """Register ``mesh`` (this rank's, of the serving group) for the
+    exchanges and sums of a loaded spatial artifact; None clears it."""
+    if mesh is None:
+        _SERVING.pop("mesh", None)
+    else:
+        _SERVING["mesh"] = mesh
+
+
+def _serving_mesh(index: int) -> "SpatialMesh":
+    mesh = _SERVING.get("mesh")
+    if mesh is None:
+        raise RuntimeError(
+            "a spatial artifact's collective runs on a serving rank: "
+            "register the rank's mesh with parallel.spatial.serve_on first")
+    if mesh.spatial_index != index:
+        raise RuntimeError(f"this program was traced for spatial rank "
+                           f"{index}; this rank is {mesh.spatial_index}")
+    return mesh
+
+
+def _pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(a), int(b)) for a, b in zip(flat[::2], flat[1::2]))
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::halo_exchange", mutates_args=())
+def _halo_op(x: torch.Tensor, bounds: List[int], needs: List[int],
+             index: int) -> torch.Tensor:
+    """``dseg::halo_exchange``: the window of global rows ``needs[index]``
+    (flattened pairs) of the tensor partitioned by ``bounds`` whose band
+    is ``x``, exchanged over the registered serving mesh."""
+    mesh = _serving_mesh(index)
+    plan = halo_plan(Rows(tuple(int(b) for b in bounds)), _pairs(needs),
+                     index, mesh.peers)
+    return _halo_window(x, plan, mesh)
+
+
+@_halo_op.register_fake
+def _halo_shape(x, bounds, needs, index):
+    lo, hi = needs[2 * index], needs[2 * index + 1]
+    return x.new_empty((x.shape[0], x.shape[1], hi - lo, x.shape[3]))
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::spatial_sum", mutates_args=())
+def _spatial_sum_op(t: torch.Tensor, index: int) -> torch.Tensor:
+    """``dseg::spatial_sum``: ``t`` summed over the registered serving
+    mesh's spatial group."""
+    return _serving_mesh(index).spatial_sum(t)
+
+
+@_spatial_sum_op.register_fake
+def _spatial_sum_shape(t, index):
+    return torch.empty_like(t)
 
 
 class _BandMean(torch.autograd.Function):
@@ -288,6 +371,24 @@ class SpatialMesh:
         self.exchange_seconds = 0.0
         barrier()
 
+    @classmethod
+    def for_export(cls, spatial_size: int,
+                   spatial_index: int = 0) -> "SpatialMesh":
+        """A mesh with no process group, for tracing one spatial rank's
+        band of a serving forward (``utils/export.py``): inside
+        ``banded()`` while ``torch.export`` traces, its exchanges and sums
+        are the custom ops, which find the group at run time
+        (``serve_on``). Set ``spatial_index`` to trace another rank's."""
+        mesh = cls.__new__(cls)
+        mesh.rank, mesh.data_size, mesh.spatial_size = spatial_index, 1, \
+            spatial_size
+        mesh.data_index, mesh.spatial_index = 0, spatial_index
+        mesh.spatial_group = mesh.data_group = mesh.device = None
+        mesh.peers = tuple(range(spatial_size))
+        mesh.capturable = mesh.active = False
+        mesh.exchanges, mesh.exchange_seconds = 0, 0.0
+        return mesh
+
     def __deepcopy__(self, memo):
         return self   # a copy of a converted model shares the mesh
 
@@ -333,7 +434,12 @@ class SpatialMesh:
         """This rank's window of global rows ``needs[s]`` of the tensor
         whose band ``rows.band(s)`` is ``x``; zeros outside the image.
         Every rank of the spatial group calls it with the same ``rows``
-        and ``needs``."""
+        and ``needs``. While ``torch.export`` traces: the op
+        ``dseg::halo_exchange`` (forward only)."""
+        if torch.compiler.is_exporting():
+            return _halo_op(x, list(rows.bounds),
+                            [int(v) for pair in needs for v in pair],
+                            self.spatial_index)
         plan = halo_plan(rows, needs, self.spatial_index, self.peers)
         return _Halo.apply(x, plan, self)
 
@@ -353,21 +459,30 @@ class SpatialMesh:
 
     # ----------------------------------------------------- banded ops
 
-    def conv_band(self, conv: nn.Conv2d, x: torch.Tensor, rows: Rows
-                  ) -> Tuple[torch.Tensor, Rows]:
-        """``conv`` on the band ``x`` of a tensor partitioned by
-        ``rows``: (the output band, the output's partition)."""
+    def conv_window(self, conv: nn.Conv2d, x: torch.Tensor, rows: Rows
+                    ) -> Tuple[torch.Tensor, Rows]:
+        """(the rows ``conv`` reads for this rank's band of its output,
+        zeros outside the image, the output's partition), for the band
+        ``x`` of a tensor partitioned by ``rows``. The window is
+        convolved with no row padding."""
         k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
         if conv.dilation != (1, 1) or conv.padding_mode != "zeros":
             raise ValueError(f"{conv}: only undilated zero-padded convs")
         n_out = (rows.n + 2 * p - k) // s + 1
         out_rows = layer_rows(rows, n_out, k, s, p)
-        win = self.exchange(x, rows, window_needs(out_rows, k, s, p))
         o0, o1 = out_rows.band(self.spatial_index)
         if o1 <= o0:
             raise ValueError(f"{conv}: an empty band of {n_out} output "
                              f"rows over {self.spatial_size} ranks")
-        return F.conv2d(win, conv.weight, conv.bias, (s, conv.stride[1]),
+        return self.exchange(x, rows, window_needs(out_rows, k, s, p)), \
+            out_rows
+
+    def conv_band(self, conv: nn.Conv2d, x: torch.Tensor, rows: Rows
+                  ) -> Tuple[torch.Tensor, Rows]:
+        """``conv`` on the band ``x`` of a tensor partitioned by
+        ``rows``: (the output band, the output's partition)."""
+        win, out_rows = self.conv_window(conv, x, rows)
+        return F.conv2d(win, conv.weight, conv.bias, conv.stride,
                         (0, conv.padding[1]), 1, conv.groups), out_rows
 
     def pool_band(self, pool: nn.AvgPool2d, x: torch.Tensor) -> torch.Tensor:
@@ -387,8 +502,14 @@ class SpatialMesh:
         """``x.mean((2, 3), keepdim=True)`` over the global H·W."""
         if not self.active:
             return x.mean(dim=(2, 3), keepdim=True)
-        return _BandMean.apply(x, self, x.shape[2] * x.shape[3]
-                               * self.spatial_size)
+        count = x.shape[2] * x.shape[3] * self.spatial_size
+        if torch.compiler.is_exporting():
+            # the forward alone, its group sum the op dseg::spatial_sum
+            acc = torch.promote_types(x.dtype, torch.float32)
+            total = _spatial_sum_op(x.sum((2, 3), keepdim=True, dtype=acc),
+                                    self.spatial_index)
+            return (total / count).to(x.dtype)
+        return _BandMean.apply(x, self, count)
 
     def upsample_nearest(self, x: torch.Tensor, out_hw) -> torch.Tensor:
         """The context path's nearest upsample: local on shard-aligned
@@ -548,12 +669,23 @@ def _needs_halo(conv: nn.Conv2d) -> bool:
     return (conv.kernel_size[0], conv.stride[0], conv.padding[0]) != (1, 1, 0)
 
 
+def _int8(block: nn.Module) -> bool:
+    """Whether ``block`` runs the int8 kernel (an enabled entry)."""
+    return (isinstance(block, QuantBlock) and block.quant_mode == "int8"
+            and block.quant is not None and "disabled" not in block.quant)
+
+
 def _swap_banded(module: nn.Module, mesh: SpatialMesh) -> None:
     """Every ``nn.Conv2d`` whose rows read a halo (not 1×1 s1 p0) and
     every ``nn.AvgPool2d`` under ``module`` becomes its banded form,
-    holding the same parameters."""
+    holding the same parameters; an int8 ``QuantBlock`` takes the mesh
+    and keeps its ``conv`` (its int8 path reads the halo itself). Modules
+    converted before are pointed at ``mesh``."""
     for name, child in list(module.named_children()):
-        if type(child) is nn.Conv2d and _needs_halo(child):
+        if _int8(child) or isinstance(child, (BandedConv2d,
+                                              BandedAvgPool2d)):
+            child.mesh = mesh
+        elif type(child) is nn.Conv2d and _needs_halo(child):
             banded = BandedConv2d(
                 child.in_channels, child.out_channels, child.kernel_size,
                 child.stride, child.padding, child.dilation, child.groups,

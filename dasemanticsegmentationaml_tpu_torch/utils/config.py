@@ -45,7 +45,6 @@ def str2bool_auto(v):
 QUANTIZE_FILTERS = ("all", "backbone", "deep", "head", "head_ch", "head_ffm",
                     "head_stem", "heads_cp")
 
-_TODO = "not ported yet (ROADMAP.md)"
 
 # (flag, type, default, choices, help)
 _FLAGS = (
@@ -159,8 +158,12 @@ _FLAGS = (
     ("--export_batches", str, None, None,
      "comma-separated batch sizes: write --export_model as a bundle of "
      "one program per size"),
-    ("--export_spatial", str2bool, False, None, "True: " + _TODO),
-    ("--export_devices", int, 1, None, "more than 1: " + _TODO),
+    ("--export_spatial", str2bool, False, None,
+     "with --export_devices N > 1: the height-sharded artifact (any batch, "
+     "a band of rows a rank) in place of the batch-sharded one"),
+    ("--export_devices", int, 1, None,
+     "more than 1: an artifact served by that many ranks (serve.py "
+     "--device a,b,...), the batch sharded over them"),
     ("--resume", str, None, None,
      "continue from <save_model_path>/state (model, optimizer, "
      "accumulation, epoch)"),

@@ -1366,3 +1366,61 @@ def test_windowed_fused_ce_equals_plain_and_full(cuda_device, shape,
     if dtype == torch.float32:
         bound = 1e-4 * full_grad.abs().max()
         assert bool(((assembled - full_grad).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,out_hw,parts", [
+    ((2, 19, 64, 128), (512, 1024), 2),
+    ((1, 19, 13, 16), (100, 120), 4),
+])
+def test_windowed_upsample_argmax_op_equals_the_launch(cuda_device, shape,
+                                                       out_hw, parts, dtype):
+    """The op a height-sharded artifact holds, ``dseg::upsample_argmax_
+    window``, on a card: the wrapper's windowed launch, bit for bit, one
+    launch counted in both counters."""
+    x = _logits(cuda_device, shape, 4, "normal", dtype)
+    for window, hi in _row_windows(shape[2], out_hw[0], parts):
+        band = x[:, :, window.base:hi].contiguous()
+        rows = (window.y1 - window.y0, out_hw[1])
+        before = (ua.LAUNCHES, ua.WINDOW_LAUNCHES)
+        got = torch.ops.dseg.upsample_argmax_window(
+            band, window.h, window.H, out_hw[1], window.base, window.y0,
+            window.y1)
+        torch.cuda.synchronize()
+        assert (ua.LAUNCHES, ua.WINDOW_LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+        assert torch.equal(got, ua.upsample_argmax(band, rows,
+                                                   window=window)), window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", INT8_DTYPES[:2])
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("case", [c for c in INT8_CASES if c[5] == 3]
+                         + [INT8_ALL_SHAPES[0], INT8_ALL_SHAPES[-1]])
+def test_int8_conv_band_equals_plain_and_whole_rows(cuda_device, case, parts,
+                                                    dtypes):
+    """A band of output rows of the height-sharded mesh: its window (the
+    rows it reads, zeros outside the image) with ``pad_h = 0``, bit for bit
+    against the plain version on the window and the whole kernel's rows."""
+    import torch.nn.functional as F
+
+    from dasemanticsegmentationaml_tpu_torch.ops.cuda import int8_conv as ic
+
+    _, _, _, _, _, ks, s, p = case
+    in_dtype, out_dtype = dtypes
+    x, w8, out_mul, bias, inv = _int8_inputs(cuda_device, case, in_dtype,
+                                             case[1] + parts)
+    args = (w8, ic.pack_weights(w8), out_mul, bias, inv, s)
+    whole = ic.int8_conv(x, *args, p, True, out_dtype)
+    padded = F.pad(x, (0, 0, p, p))
+    n_out = whole.shape[2]
+    for k in range(parts):
+        o0, o1 = k * n_out // parts, (k + 1) * n_out // parts
+        win = padded[:, :, o0 * s:(o1 - 1) * s + ks].contiguous()
+        got = ic.int8_conv(win, *args, (0, p), True, out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ic.int8_conv_reference(
+            win, w8, out_mul, bias, inv, s, (0, p), True, out_dtype))
+        assert torch.equal(got, whole[:, :, o0:o1]), (o0, o1)

@@ -230,27 +230,15 @@ def test_domain_shift_cli_matches_jax(tmp_path, dataset):
 
 
 @pytest.mark.parametrize("flags", [
-    # windows are ported; the sharded export stops
-    ["--export_devices", "2", "--eval_scan_window", "8"],
+    # the DA path is ported; accumulation stops it as the JAX CLI does
+    # (cli.py:603-611). The multi-device export cases that stopped here
+    # run now: tests/test_torch_multi_device_cli.py::
+    # test_port_cli_multi_device_exports
     ["--domain_adaptation", "True", "--iter_size", "2"],
-    # int8 is ported; the height-sharded export stops
-    ["--quantize_int8", "True", "--export_spatial", "True"],
-    # the augmentation and profile flags are ported; the stops stay
-    ["--aug_type", "H-RP", "--host_augment", "True", "--profile_dir",
-     "runs/trace", "--export_devices", "2"],
-    # --export_model is ported; the multi-device exports stop
-    ["--export_model", "m.pt2", "--export_spatial", "True",
-     "--export_devices", "2"],
 ])
 def test_cli_stops_on_unported_paths(flags):
-    argv = ["--domain_shift", "True", "--cuda", "cpu"] + flags
-    match = "not ported yet: see ROADMAP.md"
-    if "--domain_adaptation" in flags:
-        # the DA path is ported; accumulation stops it as the JAX CLI does
-        # (cli.py:603-611)
-        argv[1] = "False"
-        match = "--iter_size > 1 is supervised-only"
-    with pytest.raises(SystemExit, match=match):
+    argv = ["--domain_shift", "False", "--cuda", "cpu"] + flags
+    with pytest.raises(SystemExit, match="--iter_size > 1 is supervised-only"):
         cli.main(argv)
 
 

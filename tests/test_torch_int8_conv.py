@@ -129,8 +129,8 @@ def _replay_kernel(x, w_int8, inv, stride, padding, sms):
     assert p.ksteps * ic.TILE_K == p.kpad
     m = np.arange(n * p.out_h * p.out_w)
     img, pix = m // (p.out_h * p.out_w), m % (p.out_h * p.out_w)
-    ih0 = (pix // p.out_w) * p.stride - p.pad
-    iw0 = (pix % p.out_w) * p.stride - p.pad
+    ih0 = (pix // p.out_w) * p.stride - p.pad_h
+    iw0 = (pix % p.out_w) * p.stride - p.pad_w
     chunks = ic.TILE_K // ic.PIECE
     steps = [s for split in range(p.splits) for s in _split_steps(p, split)]
     assert steps == list(range(p.ksteps)), "the splits must cover K once"

@@ -246,12 +246,20 @@ def test_port_console_main_and_list_images(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--export_batches", "1,8", "--export_spatial", "True"],
      "cannot be combined"),
-    (["--export_devices", "4"], "not ported yet"),
+    # --export_devices 4 alone exports now (tests/test_torch_multi_device_
+    # cli.py); with a bundle whose batch 4 does not divide, it stops
+    (["--export_devices", "4", "--export_batches", "2,8"],
+     "batch 2 not divisible by the 4-device mesh"),
+    (["--export_devices", "2", "--export_spatial", "True", "--crop_height",
+      "64", "--crop_width", "96"],
+     "image height 96 is not spatially shardable over 2 devices"),
 ])
 def test_port_cli_stops_on_the_multi_device_exports(flags, match):
-    """``--export_batches`` with ``--export_spatial`` stops with JAX's
-    reason (cli.py:503-512), before the spatial export's own stop; the
-    sharded export stops as not ported."""
+    """The multi-device exports' refusals, in JAX's words and before any
+    work: ``--export_batches`` with ``--export_spatial`` (JAX
+    cli.py:503-512), a bundle batch the devices do not divide (JAX
+    utils/export.py:158-160), a height the spatial artifact cannot shard
+    (under --faithful_resize, --crop_width; JAX :252)."""
     with pytest.raises(SystemExit, match=match):
         cli.main(["--domain_shift", "True", "--cuda", "cpu",
                   "--export_model", "m.pt2"] + flags)

@@ -635,3 +635,61 @@ def ohem_bands(rank, world, *, spatial, logits, labels, cases):
         share.backward()
         out[name] = (float(share), x.grad.numpy())
     return out
+
+
+def int8_bands(rank, world, *, model, inputs):
+    """Each int8 block of ``model`` (quantized, unconverted) on this
+    rank's band of its whole input, after ``SpatialMesh.convert``: {name:
+    the band's output}. ``inputs``: {name: the block's whole input}, a
+    name with a ``#`` suffix the block before it."""
+    from dasemanticsegmentationaml_tpu_torch.parallel.spatial import (
+        create_mesh_spatial, keep_band)
+
+    mesh = create_mesh_spatial(1, world)
+    mesh.convert(model)
+    blocks = dict(model.named_modules())
+    out = {}
+    with torch.inference_mode(), mesh.banded():
+        for name, x in inputs.items():
+            # the context path's (B, C, 1, 1) mean is every rank's whole
+            band = x if x.shape[2] == 1 else keep_band(x, rank, world)
+            out[name] = blocks[name.split("#")[0]](band.contiguous())
+    return out
+
+
+def spatial_programs(rank, world, *, path, frames):
+    """This rank's program of the spatial artifact at ``path`` on its band
+    of each uint8 NHWC batch of the list ``frames``, the group registered
+    as the serving mesh: [(the band's labels, the exchanges the call
+    made)]."""
+    from dasemanticsegmentationaml_tpu_torch.parallel import spatial
+    from dasemanticsegmentationaml_tpu_torch.utils import export as ex
+
+    mesh = spatial.SpatialMesh(1, world)
+    spatial.serve_on(mesh)
+    program = ex.read_exported_spatial(path, rank).program.module()
+    out = []
+    for batch in frames:
+        band = batch.shape[1] // world
+        before = mesh.exchanges
+        with torch.inference_mode():
+            labels = program(
+                batch[:, rank * band:(rank + 1) * band].contiguous())
+        out.append((labels, mesh.exchanges - before))
+    spatial.serve_on(None)
+    return out
+
+
+def spatial_predict(rank, world, *, model, images, use_fused_kernel=True):
+    """``predict`` of the (quantized) ``model`` on this rank's band of the
+    normalised NCHW ``images``, the model converted to a 1 x ``world``
+    mesh: the band's labels."""
+    from dasemanticsegmentationaml_tpu_torch.parallel.spatial import (
+        create_mesh_spatial, keep_band)
+    from dasemanticsegmentationaml_tpu_torch.train.evaluate import predict
+
+    mesh = create_mesh_spatial(1, world)
+    mesh.convert(model)
+    with torch.inference_mode():
+        return predict(model, keep_band(images, rank, world).contiguous(),
+                       use_fused_kernel, spatial=mesh)
