@@ -269,6 +269,19 @@ else runs (``compare_baseline``).
                   launches by its counters, held equal to its own profile;
                   then serve.main over both kinds with --device
                   cuda:0,cuda:0 on 8 PNGs.
+24. hpo        -- the HPO harness (hpo/), last: one trial in-process
+                  (hpo.trial.main: the DA CLI with the FC D, --d_head 2 and
+                  the combined ordering) on 16 + 16 + 4 image trees at
+                  1024x512, bf16, batch 8, 3 epochs of 2 steps (the counts
+                  reset before and read after: 2 + 2 CE launches a step,
+                  upsample_argmax in each validation); its --nni_output
+                  records one intermediate a validation, each equal to the
+                  mIoU evaluate returned, then the final one, their max;
+                  then run_experiment(max_trials=2, use_nni=False): two
+                  trials of the tuner's draws, each a process of its own
+                  on the card, rc 0, finite mIoUs, best_miou their max,
+                  each trial's seconds; then the trial's DA step at the
+                  batch sizes of the three trials, ms a step.
 
 Every failure raises and ends the run with a non-zero exit. The line
 before the last is the kernels' JSON record: each kernel's launches on its
@@ -290,7 +303,9 @@ records their launches in the parallel phase's ranks
 their launches in the mesh-serve phase's ranks (``mesh_launches``: the
 banded int8 eval, the batch-sharded and the height-sharded artifacts),
 the int8 conv record its band launches' device ms beside the whole
-conv's (``band_device_ms``). The last line is
+conv's (``band_device_ms``), and the upsample+argmax and CE records
+their launches in the HPO phase's in-process trial (``hpo_launches``).
+The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -5708,6 +5723,173 @@ def phase_mesh_serve(device, card):
     return launches
 
 
+#: the HPO phase's in-process trial: its tuner values, epochs and steps
+HPO_TRIAL = {"batch_size": 8, "num_epochs": 3}
+HPO_STEPS_PER_EPOCH = 2
+#: seconds a trial of the HPO phase's experiment may take
+HPO_TRIAL_TIMEOUT = 600
+
+
+def hpo_da_step_ms(device, card, batch_sizes):
+    """The trial's DA step (bf16, FC D, ``--d_head 2``, the combined
+    ordering) on the CLI's 1024 x 512 batches (``--faithful_resize``) at
+    each of ``batch_sizes``: {batch: ms/step},
+    CUDA events over a chain of 5 steps after 2 of warm-up."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import prepare_batch
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        build_bisenet, trainable_parameters)
+    from dasemanticsegmentationaml_tpu_torch.models.discriminator import (
+        build_discriminator)
+    from dasemanticsegmentationaml_tpu_torch.train.adversarial import (
+        make_da_step)
+    from dasemanticsegmentationaml_tpu_torch.train.optim import make_optimizer
+
+    g = build_bisenet(19, device=device,
+                      generator=torch.Generator().manual_seed(0)).train()
+    d = build_discriminator(19, device=device,
+                            generator=torch.Generator().manual_seed(2)).train()
+    g_opt = make_optimizer("sgd", trainable_parameters(g), 1e-3,
+                           momentum=0.9, weight_decay=5e-4)
+    d_opt = make_optimizer("adam", d.parameters(), 1e-4, betas=(0.9, 0.99))
+    step = make_da_step(g, d, g_opt, d_opt, lambda_adv=1e-3, d_head=2,
+                        step_mode="combined", amp_dtype=torch.bfloat16)
+    rng = np.random.default_rng(8)
+    times = {}
+    for b in sorted(set(batch_sizes)):
+        labels = rng.integers(0, 35, (b, 1024, 512)).astype(np.uint8)
+        xs, ys = prepare_batch(
+            rng.integers(0, 256, (b, 1024, 512, 3), dtype=np.uint8), labels,
+            device=device, remap=True, dtype=torch.bfloat16)
+        xt, _ = prepare_batch(
+            rng.integers(0, 256, (b, 1024, 512, 3), dtype=np.uint8), labels,
+            device=device, dtype=torch.bfloat16)
+        times[b] = cuda_ms(lambda: step(xs, ys, xt), 5, warmup=2)
+        log("hpo", f"the trial's DA step (bf16, FC D, --d_head 2, combined),"
+            f" batch {b}, the CLI's 1024x512: {times[b]:.3f} ms/step = "
+            f"{1000.0 * b / times[b]:.1f} images/s | {card}")
+    return times
+
+
+def phase_hpo(device, card):
+    """The port's HPO harness on the card (docstring, phase 24): one trial
+    in-process, then a two-trial experiment in subprocesses. Returns the
+    in-process trial's launches."""
+    import torch
+
+    from dasemanticsegmentationaml_tpu_torch import cli
+    from dasemanticsegmentationaml_tpu_torch.hpo import experiment, trial
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        gta, cs = os.path.join(root, "gta5"), os.path.join(root, "cityscapes")
+        write_gtav(gta, n=16)
+        write_cityscapes(cs, "train", n=16, seed=1)
+        write_cityscapes(cs, "val", n=4)
+        trees = ["--root", cs, "--root_source", gta, "--root_target", cs,
+                 "--dtype", "bfloat16", "--cuda", "0",
+                 "--tensorboard", "False"]
+
+        # one trial in-process: each validation's mIoU as evaluate returned
+        # it, against the records the trial wrote
+        out = os.path.join(root, "trial.jsonl")
+        evaluated = []
+        evaluate = cli.evaluate
+
+        def recording(*a, **kw):
+            result = evaluate(*a, **kw)
+            evaluated.append(result[1])
+            return result
+
+        steps = HPO_TRIAL["num_epochs"] * HPO_STEPS_PER_EPOCH
+        reset_ce_counts()
+        cli.evaluate = recording
+        t0 = time.perf_counter()
+        try:
+            miou = trial.main(trees + [
+                "--nni_params", json.dumps(HPO_TRIAL), "--nni_output", out,
+                "--validation_step", "1",
+                "--max_steps_per_epoch", str(HPO_STEPS_PER_EPOCH),
+                "--save_model_path", os.path.join(root, "ck")])
+        finally:
+            cli.evaluate = evaluate
+        secs = time.perf_counter() - t0
+        launches = ce_counts()
+        with open(out) as f:
+            recs = [json.loads(line) for line in f]
+        log("hpo", f"trial.main in-process, {HPO_TRIAL}, 1024x512, bf16, "
+            f"{steps} DA steps: final {miou}; records {recs}; evaluate "
+            f"returned {evaluated}; {secs:.2f} s (set-up, validations and "
+            f"checkpoints included); launches {launches} | {card}")
+        check(launches["fused_ce_fwd"] == 2 * steps
+              and launches["fused_ce_bwd"] == 2 * steps,
+              f"fused CE launches {launches}, expected {2 * steps} each")
+        check(launches["upsample_argmax"] > 0,
+              "the trial's validations did not launch upsample_argmax")
+        validations = HPO_TRIAL["num_epochs"] - 1
+        check([r["type"] for r in recs]
+              == ["intermediate"] * validations + ["final"],
+              f"records {recs}")
+        check([r["value"] for r in recs[:-1]] == evaluated[:validations]
+              and len(evaluated) == validations + 1,
+              f"intermediate records {recs} against evaluate's {evaluated}")
+        check(recs[-1]["value"] == max(evaluated[:validations]) == miou
+              and math.isfinite(miou), f"final record {recs[-1]}, {miou}")
+
+        # two trials through the experiment runner, each a process of its
+        # own; its subprocess.run timed and its return codes kept
+        torch.cuda.empty_cache()
+        procs = []
+        run = experiment.subprocess.run
+
+        def timed_run(cmd, **kw):
+            t = time.perf_counter()
+            proc = run(cmd, **kw)
+            procs.append((proc.returncode, time.perf_counter() - t,
+                          proc.stderr[-2000:]))
+            return proc
+
+        path = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [ROOT] + ([path] if path else []))
+        experiment.subprocess.run = timed_run
+        t0 = time.perf_counter()
+        try:
+            res = experiment.run_experiment(
+                static_args=trees + [
+                    "--max_steps_per_epoch", "1",
+                    "--save_model_path", os.path.join(root, "trials")],
+                max_trials=2, concurrency=1, seed=0,
+                max_hours=2 * HPO_TRIAL_TIMEOUT / 3600,
+                results_path=os.path.join(root, "sweep.jsonl"),
+                use_nni=False)
+        finally:
+            experiment.subprocess.run = run
+            if path is None:
+                del os.environ["PYTHONPATH"]
+            else:
+                os.environ["PYTHONPATH"] = path
+        secs = time.perf_counter() - t0
+        for t, (rc, t_secs, err) in zip(res["trials"], procs):
+            log("hpo", f"trial {t['id']}: rc {rc}, {t_secs:.1f} s, final "
+                f"mIoU {t['miou']}, params {t['params']} | {card}")
+            check(rc == 0, f"trial {t['id']} exited with {rc}:\n{err}")
+        mious = [t["miou"] for t in res["trials"]]
+        log("hpo", f"run_experiment(max_trials=2): {secs:.1f} s; best "
+            f"{res['best_miou']} of {mious} | {card}")
+        check(len(procs) == len(mious) == 2
+              and all(math.isfinite(m) and not t["timed_out"]
+                      for m, t in zip(mious, res["trials"]))
+              and res["best_miou"] == max(mious),
+              f"the experiment's trials {res['trials']}")
+        batch_sizes = [HPO_TRIAL["batch_size"]] + [
+            t["params"]["batch_size"] for t in res["trials"]]
+    hpo_da_step_ms(device, card, batch_sizes)
+    log("hpo", f"passed in {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches
+
+
 def main(argv=None):
     import argparse
     import concurrent.futures as futures
@@ -5824,6 +6006,7 @@ def main(argv=None):
     parallel_launches = timed(phase_parallel, device, card)
     spatial_launches = timed(phase_spatial, device, card)
     mesh_launches = timed(phase_mesh_serve, device, card)
+    hpo_launches = timed(phase_hpo, device, card)
 
     argmax = times["argmax"][((2, 19, 128, 64), "bfloat16")]
     ce_shape, ce_hw = CE_MAIN_CASES[0]
@@ -5866,7 +6049,8 @@ def main(argv=None):
                       serve_launches=serve_launches["upsample_argmax"],
                       parallel_launches=parallel_launches["upsample_argmax"],
                       spatial_launches=spatial_launches["upsample_argmax"],
-                      mesh_launches=mesh_launches["upsample_argmax"])
+                      mesh_launches=mesh_launches["upsample_argmax"],
+                      hpo_launches=hpo_launches["upsample_argmax"])
         ] + [
         kernel_record(f"fused_ce_{part}", CE_SOURCE, CE_REPLACES,
                       train_launches[f"fused_ce_{part}"],
@@ -5876,7 +6060,8 @@ def main(argv=None):
                       device_ms=ce[(part, "kernel", "device")],
                       plain_device_ms=ce[(part, "plain", "device")],
                       parallel_launches=parallel_launches[f"fused_ce_{part}"],
-                      spatial_launches=spatial_launches[f"fused_ce_{part}"])
+                      spatial_launches=spatial_launches[f"fused_ce_{part}"],
+                      hpo_launches=hpo_launches[f"fused_ce_{part}"])
         for part in ("fwd", "bwd")] + [
         kernel_record(f"fused_cat_s{s}", STDC_SOURCE, STDC_REPLACES[s],
                       stdc_launches[f"fused_cat_s{s}"], stdc_errs[s],

@@ -505,15 +505,23 @@ def resolve_devices(cuda: str, n: int):
     return [torch.device("cuda", first.index + r) for r in range(n)]
 
 
-def _rank_main(rank: int, world: int, device: torch.device, args):
+def _rank_main(rank: int, world: int, device: torch.device, args,
+               report_fn=None):
     """One rank of ``--num_devices``: a process that
     ``parallel/distributed.py::spawn`` started (a file store in a fresh
     temporary directory; a rank that exits with an error ends the others
-    and stops the run); rank 0's result goes to the parent."""
-    return run(args, device)
+    and stops the run); rank 0's result goes to the parent, and so do its
+    reports (``report_fn``: spawn's sender on rank 0, None on the
+    others)."""
+    return run(args, device, report_fn)
 
 
-def main(argv=None):
+def main(argv=None, report_fn=None):
+    """report_fn(epoch, miou): called after every validation of training,
+    the HPO trial's hook (JAX cli.py:281-283), in this process: under
+    ``--num_devices`` rank 0's reports reach it through ``spawn``, once
+    each, as they are made; under ``--num_processes`` each process calls
+    its own, as each JAX process does."""
     args = parse_args(argv)
     check_ported(args)
     world = check_parallel(args)
@@ -527,15 +535,16 @@ def main(argv=None):
         initialize(args.coordinator_address, world, args.process_id,
                    device=device)
         try:
-            return run(args, device)
+            return run(args, device, report_fn)
         finally:
             destroy()
     if world > 1:
-        return spawn(_rank_main, resolve_devices(args.cuda, world), args)
-    return run(args, resolve_device(args.cuda))
+        return spawn(_rank_main, resolve_devices(args.cuda, world), args,
+                     report_fn=report_fn)
+    return run(args, resolve_device(args.cuda), report_fn)
 
 
-def run(args, device: torch.device):
+def run(args, device: torch.device, report_fn=None):
     """The run on ``device``: one process, or one rank of the process
     group this process has joined."""
     rank, world = process_rank()
@@ -543,11 +552,11 @@ def run(args, device: torch.device):
         # only rank 0 prints (JAX cli.py:467); errors still reach stderr
         with open(os.devnull, "w") as quiet, \
                 contextlib.redirect_stdout(quiet):
-            return _run(args, device, rank, world)
-    return _run(args, device, rank, world)
+            return _run(args, device, rank, world, report_fn)
+    return _run(args, device, rank, world, report_fn)
 
 
-def _run(args, device, rank: int, world: int):
+def _run(args, device, rank: int, world: int, report_fn=None):
     pin = device.type == "cuda"
     spatial = None
     if args.spatial_devices > 1:
@@ -740,12 +749,12 @@ def _run(args, device, rank: int, world: int):
                     args, model, source_ds, target_ds,
                     make_prepare(None if host_aug else args.aug_type, True),
                     make_prepare(None, False), evaluate_fn, amp_dtype,
-                    device, profiler, rank, world, spatial)
+                    device, profiler, rank, world, spatial, report_fn)
             else:
                 max_miou = _train_supervised(
                     args, model, train_ds, make_prepare(aug_train, remap),
                     evaluate_fn, amp_dtype, pin, profiler, rank, world,
-                    spatial)
+                    spatial, report_fn)
         finally:
             if profiler is not None:
                 profiler.close()
@@ -771,7 +780,8 @@ def _data_shard(rank: int, world: int, spatial):
 
 def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
                       amp_dtype, pin, profiler, rank: int = 0,
-                      world: int = 1, spatial=None) -> float:
+                      world: int = 1, spatial=None,
+                      report_fn=None) -> float:
     """The supervised branch (JAX cli.py:713-763; reference
     train.py:465-470,501-509). SGD takes weight decay 1e-4, hard-coded as
     the reference does (train.py:504), not ``--weight_decay`` (the DA
@@ -806,7 +816,8 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
                      evaluate_fn=evaluate_fn, train_step=step,
                      writer=writer, logger=logger,
                      checkpoint_fn=make_checkpoint_fn(args.save_model_path),
-                     profiler=profiler, accumulator=accumulator)
+                     profiler=profiler, accumulator=accumulator,
+                     report_fn=report_fn)
     finally:
         logger.close()
         if writer is not None:
@@ -816,7 +827,7 @@ def _train_supervised(args, model, train_ds, prepare, evaluate_fn,
 def _train_da(args, model, source_ds, target_ds, prepare_source,
               prepare_target, evaluate_fn, amp_dtype, device,
               profiler, rank: int = 0, world: int = 1,
-              spatial=None) -> float:
+              spatial=None, report_fn=None) -> float:
     """The DA branch (JAX cli.py:601-711; reference train.py:134-299):
     GTA5 source batches (raw ids remapped, augmented by ``--aug_type``)
     shuffled with ``seed``, Cityscapes target batches shuffled with
@@ -875,7 +886,7 @@ def _train_da(args, model, source_ds, target_ds, prepare_source,
             logger=logger,
             checkpoint_fn=make_checkpoint_fn(args.save_model_path),
             lr_mode="nni_faithful" if args.nni_faithful_lr else "reference",
-            profiler=profiler)
+            profiler=profiler, report_fn=report_fn)
     finally:
         logger.close()
         if writer is not None:

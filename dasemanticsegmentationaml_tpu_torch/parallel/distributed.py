@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -89,32 +89,56 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
+class _QueueReport:
+    """A spawned rank 0's ``report_fn``: each ``report_fn(*values)`` goes to
+    the parent as ``("report", values)`` on the result queue, where
+    ``spawn`` hands it to the caller's ``report_fn`` (it pickles where the
+    caller's may not: a lambda, a reporter holding a module)."""
+
+    def __init__(self, results):
+        self.results = results
+
+    def __call__(self, *values):
+        self.results.put(("report", values))
+
+
 def _spawned(fn, rank: int, world: int, device: str, init: str,
-             backend: Optional[str], results, args) -> None:
+             backend: Optional[str], results, args, reports: bool) -> None:
     """One rank of ``spawn`` (a spawned process): join the group, run
-    ``fn``, and hand rank 0's result to the parent."""
+    ``fn``, and hand rank 0's result to the parent; with ``reports``,
+    ``fn`` takes ``report_fn=``: rank 0's puts each report on the queue
+    ahead of the result, the others' is None."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     elif "OMP_NUM_THREADS" not in os.environ:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     initialize(init, world, rank, backend=backend, device=device)
+    kwargs = ({"report_fn": _QueueReport(results) if rank == 0 else None}
+              if reports else {})
     try:
-        result = fn(rank, world, device, *args)
+        result = fn(rank, world, device, *args, **kwargs)
     finally:
         destroy()
     if rank == 0:
-        results.put(result)
+        results.put(("result", result))
 
 
-def spawn(fn, devices, *args, backend: Optional[str] = None):
+def spawn(fn, devices, *args, backend: Optional[str] = None,
+          report_fn: Optional[Callable] = None):
     """``fn(rank, world, device, *args)`` in one spawned process a device
     of ``devices``, the processes one group (``backend``: by
     ``initialize``'s rule where None) meeting through a file store in a
     fresh temporary directory; returns rank 0's result. A rank that exits
     with an error ends the others and stops the run. ``fn`` must be
     importable (a spawned rank re-imports its module and the caller's
-    ``__main__``)."""
+    ``__main__``).
+
+    ``report_fn``: ``fn`` is called with ``report_fn=`` too, on rank 0 a
+    callable that sends its arguments to this process, where
+    ``report_fn`` is called with them, in order, as they arrive (the queue
+    is read every 0.2 s), so once each and live; on the other ranks None.
+    ``report_fn`` itself stays in this process and need not pickle."""
     import multiprocessing
     import shutil
     import tempfile
@@ -126,16 +150,25 @@ def spawn(fn, devices, *args, backend: Optional[str] = None):
     procs = [ctx.Process(target=_spawned, name=f"rank-{r}",
                          args=(fn, r, len(devices), str(dev),
                                "file://" + os.path.join(store, "store"),
-                               backend, results, args))
+                               backend, results, args,
+                               report_fn is not None))
              for r, dev in enumerate(devices)]
-    result = None
+    done = []
+
+    def take(message):
+        kind, value = message
+        if kind == "report":
+            report_fn(*value)
+        else:
+            done.append(value)
+
     try:
         for p in procs:
             p.start()
         while any(p.is_alive() for p in procs):
-            # drained while rank 0 lives, so that its put never waits
-            if result is None and not results.empty():
-                result = results.get()
+            # drained while rank 0 lives, so that its puts never wait
+            while not done and not results.empty():
+                take(results.get())
             failed = [p for p in procs if p.exitcode not in (None, 0)]
             if failed:
                 raise SystemExit(f"{failed[0].name} exited with code "
@@ -146,7 +179,9 @@ def spawn(fn, devices, *args, backend: Optional[str] = None):
         if failed:
             raise SystemExit(f"{failed[0].name} exited with code "
                              f"{failed[0].exitcode}")
-        return result if result is not None else results.get()
+        while not done:
+            take(results.get())
+        return done[0]
     finally:
         for p in procs:
             if p.is_alive():

@@ -244,7 +244,8 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
              prepare_source, prepare_target, evaluate_fn, da_step: Callable,
              writer=None, logger=None,
              checkpoint_fn: Optional[Callable] = None,
-             lr_mode: str = "reference", profiler=None) -> float:
+             lr_mode: str = "reference", profiler=None,
+             report_fn: Optional[Callable] = None) -> float:
     """Epoch loop (JAX :311-457; reference train.py:176-299); returns the
     best validation mIoU.
 
@@ -257,7 +258,9 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
     optimizer=, model=, epoch=) (``utils/checkpoint.py``).
     lr_mode: 'reference' (each optimizer compounds its own poly schedule)
     or 'nni_faithful' (G compounds ``learning_rate_D``'s schedule, D keeps
-    ``learning_rate_D``: the NNI trial's actual dataflow, JAX :326-333)."""
+    ``learning_rate_D``: the NNI trial's actual dataflow, JAX :326-333).
+    report_fn(epoch, miou): called after every validation, the HPO trial's
+    hook (JAX :436-437)."""
     if lr_mode == "nni_faithful":
         sched_g = PolyLR(args.learning_rate_D, args.num_epochs,
                          mode="compounding")
@@ -342,6 +345,8 @@ def train_da(args, g, d, g_opt, d_opt, loader_source, loader_target, *,
                 precision, miou = evaluate_fn(g)
             finally:
                 g.train()
+            if report_fn is not None:
+                report_fn(epoch, miou)
             if miou > max_miou:
                 max_miou = miou
                 if checkpoint_fn is not None:

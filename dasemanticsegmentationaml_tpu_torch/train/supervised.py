@@ -119,7 +119,7 @@ def make_train_step(model, optimizer, *, accumulator=None,
 def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
           train_step: Callable, writer=None, logger=None,
           checkpoint_fn: Optional[Callable] = None, profiler=None,
-          accumulator=None):
+          accumulator=None, report_fn: Optional[Callable] = None):
     """Epoch loop with the reference's bookkeeping (JAX
     supervised.py:116-204; reference train.py:63-120).
 
@@ -132,7 +132,9 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
     frozen or learn the val set); checkpoint_fn(model, name, optimizer=,
     accumulator=, epoch=) writes 'latest' / 'best' (``utils/checkpoint.
     py``); ``accumulator``: the ``GradientAccumulator`` the step uses, saved
-    with the state. Returns the best validation mIoU."""
+    with the state; report_fn(epoch, miou): called after every validation,
+    the HPO trial's hook (JAX supervised.py:195-196). Returns the best
+    validation mIoU."""
     sched = PolyLR(args.learning_rate, args.num_epochs, mode="standard")
     max_miou = 0.0
     step_count = 0
@@ -190,6 +192,8 @@ def train(args, model, optimizer, loader_train, *, prepare, evaluate_fn,
                 precision, miou = evaluate_fn(model)
             finally:
                 model.train()
+            if report_fn is not None:
+                report_fn(epoch, miou)
             if miou > max_miou:
                 max_miou = miou
                 if checkpoint_fn is not None:

@@ -1424,3 +1424,61 @@ def test_int8_conv_band_equals_plain_and_whole_rows(cuda_device, case, parts,
         assert torch.equal(got, ic.int8_conv_reference(
             win, w8, out_mul, bias, inv, s, (0, p), True, out_dtype))
         assert torch.equal(got, whole[:, :, o0:o1]), (o0, o1)
+
+
+def _write_gtav(root, n, size=(64, 128), seed=1):
+    """tests/test_torch_eval.py::_mk_gtav's layout: palettised raw GTA5
+    ids."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for top in ("images", "labels"):
+        os.makedirs(os.path.join(root, top), exist_ok=True)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (*size, 3), dtype=np.uint8)
+                        ).save(os.path.join(root, "images", f"{i:05d}.png"))
+        lab = Image.fromarray(rng.integers(0, 35, size, dtype=np.uint8),
+                              mode="P")
+        lab.putpalette(rng.integers(0, 256, 768, dtype=np.uint8).tolist())
+        lab.save(os.path.join(root, "labels", f"{i:05d}.png"))
+
+
+@pytest.mark.cuda
+def test_port_hpo_trial_on_card(cuda_device, tmp_path):
+    """One HPO trial in-process on cuda:0 (128x256, bf16, batch 2, 3 epochs
+    of 1 step): 2 fused CE launches a DA step, forward and backward, the
+    eval kernel in every validation, one intermediate record a validation
+    and the final one their max."""
+    import json
+    import math
+
+    from dasemanticsegmentationaml_tpu_torch.hpo import trial
+
+    size = (128, 256)
+    cs, gta = str(tmp_path / "cs"), str(tmp_path / "gta")
+    _write_cityscapes(cs, "train", 4, size=size)
+    _write_cityscapes(cs, "val", 2, size=size, seed=1)
+    _write_gtav(gta, 4, size=size)
+    out = str(tmp_path / "trial.jsonl")
+    epochs = 3
+    params = {"batch_size": 2, "num_epochs": epochs, "lr": 1e-3}
+    fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+    miou = trial.main([
+        "--nni_params", json.dumps(params), "--nni_output", out,
+        "--root", cs, "--root_source", gta, "--root_target", cs,
+        "--crop_height", str(size[0]), "--crop_width", str(size[1]),
+        "--faithful_resize", "False", "--eval_batch_size", "2",
+        "--validation_step", "1", "--checkpoint_step", "50",
+        "--max_steps_per_epoch", "1", "--num_workers", "1",
+        "--dtype", "bfloat16", "--tensorboard", "False", "--cuda", "0",
+        "--save_model_path", str(tmp_path / "run")])
+    launches = (fc.FWD_LAUNCHES, fc.BWD_LAUNCHES, ua.LAUNCHES)
+    assert launches[:2] == (2 * epochs, 2 * epochs), launches
+    assert launches[2] > 0
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["type"] for r in recs] == ["intermediate"] * 2 + ["final"]
+    assert all(math.isfinite(r["value"]) for r in recs)
+    assert recs[-1]["value"] == max(r["value"] for r in recs[:-1]) == miou

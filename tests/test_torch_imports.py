@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
         "utils.tb_writer", "utils.state_io", "utils.label_tools",
         "data.native", "data.cache", "data.transforms_host",
         "ops.quantize", "ops.cuda.int8_conv", "train.evaluate",
-        "utils.export", "serve")
+        "utils.export", "serve", "hpo", "hpo.search", "hpo.trial",
+        "hpo.experiment")
     } <= set(modules)
     code = (
         "import importlib, sys\n"
