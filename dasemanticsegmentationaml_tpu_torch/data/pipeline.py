@@ -33,6 +33,7 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.logging_util import span
 from .augment import augment_batch
 from .labels import remap_train_ids
 
@@ -136,21 +137,25 @@ def prepare_batch(images_u8, labels_u8, *, device: torch.device,
     maps raw GTA5 ids to trainIds. From pinned host tensors it only
     enqueues work: the constants are cached per device
     (``normalisation_on``, ``labels.py::train_id_lut_on``) and the
-    augmentation's parameters are drawn on the device."""
+    augmentation's parameters are drawn on the device. The span
+    ``data.prepare`` covers it, on the calling thread."""
     device = torch.device(device)
-    images = torch.as_tensor(images_u8).to(device, non_blocking=True)
-    labels = torch.as_tensor(labels_u8).to(device, non_blocking=True)
-    mean, std = normalisation_on(device)
-    imgs = images.float()
-    if aug_type is not None:
-        if generator is None:
-            raise ValueError("augmentation needs a generator")
-        imgs, labels = augment_batch(imgs, labels, aug_type, generator,
-                                     augment_labels, rows=rows)
-    imgs = (imgs / 255.0 - mean) / std
-    imgs = imgs.permute(0, 3, 1, 2).contiguous(memory_format=memory_format)
-    imgs = imgs.to(dtype)
-    labels = remap_train_ids(labels) if remap else labels.to(torch.int32)
+    with span("data.prepare"):
+        images = torch.as_tensor(images_u8).to(device, non_blocking=True)
+        labels = torch.as_tensor(labels_u8).to(device, non_blocking=True)
+        mean, std = normalisation_on(device)
+        imgs = images.float()
+        if aug_type is not None:
+            if generator is None:
+                raise ValueError("augmentation needs a generator")
+            imgs, labels = augment_batch(imgs, labels, aug_type, generator,
+                                         augment_labels, rows=rows)
+        imgs = (imgs / 255.0 - mean) / std
+        imgs = imgs.permute(0, 3, 1, 2).contiguous(
+            memory_format=memory_format)
+        imgs = imgs.to(dtype)
+        labels = (remap_train_ids(labels) if remap
+                  else labels.to(torch.int32))
     return imgs, labels
 
 
@@ -290,7 +295,8 @@ def device_prefetch(batches: Iterable,
     before the step that reads them. A pinned host batch may be freed as
     soon as its copy is enqueued: PyTorch's pinned-memory allocator
     records the copy's stream on the block and reuses it only after the
-    copy is done."""
+    copy is done. The consumer's wait for each fetch is the span
+    ``data.wait`` (``utils/logging_util.py``)."""
     timeout = _timeout(transfer_timeout)
     it = iter(batches)
     done = object()
@@ -308,18 +314,19 @@ def device_prefetch(batches: Iterable,
 
     def fetch_next():
         nonlocal count
-        if pool is None:
-            return fetch()
-        b, count = count, count + 1
-        fut = pool.submit(fetch)
-        try:
-            return fut.result(timeout=timeout)
-        except futures.TimeoutError:
-            raise PipelineStallError(
-                f"input fetch stalled: batch {b} not produced after "
-                f"{timeout:g}s -- covers the host iterator (the decode "
-                f"wait) and prepare_batch's host-to-device dispatch"
-            ) from None
+        with span("data.wait"):
+            if pool is None:
+                return fetch()
+            b, count = count, count + 1
+            fut = pool.submit(fetch)
+            try:
+                return fut.result(timeout=timeout)
+            except futures.TimeoutError:
+                raise PipelineStallError(
+                    f"input fetch stalled: batch {b} not produced after "
+                    f"{timeout:g}s -- covers the host iterator (the decode "
+                    f"wait) and prepare_batch's host-to-device dispatch"
+                ) from None
 
     try:
         queue = collections.deque()

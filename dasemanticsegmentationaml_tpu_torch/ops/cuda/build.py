@@ -21,9 +21,12 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from ...utils.logging_util import count
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -104,20 +107,25 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library.
 
     Raises on a failed build or load; there is no fallback. Two sources
-    build at once from two threads; one source builds once."""
+    build at once from two threads; one source builds once. Counts each
+    ``nvcc`` run (``kernels.builds.<name>``) and the seconds of a first
+    load, build included (``kernels.load_s``; ``utils/logging_util.py``)."""
     with _LOCK:
         lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name in _LIBS:
             return _LIBS[name]
+        t0 = time.perf_counter()
         src = os.path.join(CSRC_DIR, f"{name}.cu")
         so_path = os.path.join(BUILD_DIR,
                                f"lib{name}_{source_digest(src)}.so")
         output = build_library([nvcc_path(), *NVCC_FLAGS], src, so_path)
         if output is not None:
             BUILD_LOGS[name] = output
+            count(f"kernels.builds.{name}")
         lib = ctypes.CDLL(so_path)
         _LIBS[name] = lib
+        count("kernels.load_s", time.perf_counter() - t0)
         return lib
 
 

@@ -37,6 +37,7 @@ from ..data.pipeline import device_prefetch
 from ..ops.cuda.fused_ce import cross_entropy_upsampled
 from ..ops.losses import ohem_cross_entropy
 from ..ops.schedules import PolyLR
+from ..utils.logging_util import end_step, span
 from .optim import set_learning_rate
 
 
@@ -98,19 +99,25 @@ def make_train_step(model, optimizer, *, accumulator=None,
     """step(images, labels) -> the loss as a detached device scalar (JAX
     supervised.py:86-113). The model must be in train mode.
     ``accumulator``: a ``GradientAccumulator`` over ``optimizer``; the step
-    is then one mini-step (JAX cli.py:719-722)."""
+    is then one mini-step (JAX cli.py:719-722). Its phases are the spans
+    ``train.forward``, ``train.backward`` and ``train.optimizer``
+    (``utils/logging_util.py``)."""
     loss_fn = make_supervised_loss(model, ohem=ohem,
                                    ignore_index=ignore_index,
                                    amp_dtype=amp_dtype, ce=ce)
 
     def step(images, labels):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(images, labels)
-        loss.backward()
-        if accumulator is None:
-            optimizer.step()
-        else:
-            accumulator.step()
+        with span("train.forward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(images, labels)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            if accumulator is None:
+                optimizer.step()
+            else:
+                accumulator.step()
+        end_step()
         return loss.detach()
 
     return step

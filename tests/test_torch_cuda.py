@@ -8,6 +8,7 @@ Without a card every test skips (the fixture decides, at run time).
 """
 
 import contextlib
+import functools
 
 import numpy as np
 import pytest
@@ -1482,3 +1483,168 @@ def test_port_hpo_trial_on_card(cuda_device, tmp_path):
     assert [r["type"] for r in recs] == ["intermediate"] * 2 + ["final"]
     assert all(math.isfinite(r["value"]) for r in recs)
     assert recs[-1]["value"] == max(r["value"] for r in recs[:-1]) == miou
+
+
+class _Heads(torch.nn.Module):
+    """Two convolutions and three heads at strides 1, 2 and 4, as
+    ``BiSeNet.features`` gives them."""
+
+    def __init__(self):
+        super().__init__()
+        self.a = torch.nn.Conv2d(3, 32, 3, padding=1)
+        self.b = torch.nn.Conv2d(32, 19, 3, padding=1)
+
+    def features(self, x):
+        y = self.b(torch.relu(self.a(x)))
+        return [y, torch.nn.functional.avg_pool2d(y, 2),
+                torch.nn.functional.avg_pool2d(y, 4)]
+
+
+def _trace_here(host, n=4):
+    """``n`` steps of ``make_train_step`` (bf16, the fused CE) on cuda:0
+    with the program's spans on (annotated with ``host``), each followed
+    by ``torch.cuda.synchronize()`` in the span ``test.sync``, profiled
+    with CUDA activity (and CPU activity with ``host``): {"spans",
+    "anchor", "events" (the trace's kernels, runtime calls and ranges),
+    "base" (its ``baseTimeNanoseconds``)}."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+    from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
+
+    device = torch.device("cuda", 0)
+    torch.manual_seed(0)
+    model = _Heads().to(device).train()
+    step = make_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        amp_dtype=torch.bfloat16)
+    x = torch.randn(2, 3, 64, 128, device=device)
+    y = torch.randint(0, 19, (2, 64, 128), device=device, dtype=torch.int32)
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host else [])
+    try:
+        with profile(activities=activities) as prof:
+            lu.enable(annotate=host)
+            for _ in range(n):
+                step(x, y)
+                with lu.span("test.sync"):
+                    torch.cuda.synchronize()
+            lu.disable()
+    finally:
+        lu.disable()
+    got = lu.collect()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.unlink(path)
+    events = [{k: e[k] for k in ("name", "cat", "ts", "dur")}
+              for e in trace["traceEvents"] if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "cuda_runtime",
+                                   "user_annotation")]
+    return {"spans": [list(sp) for sp in got["spans"]],
+            "anchor": list(got["anchor"]), "events": events,
+            "base": trace["baseTimeNanoseconds"]}
+
+
+@functools.lru_cache(maxsize=None)
+def _traced_steps(host):
+    """``_trace_here(host)`` in a fresh process: late in a long process
+    the profiler drops records (ROADMAP's tracing gap; here the first
+    kernels of a profile after some 400 card tests): (spans, anchor,
+    events, base)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys; sys.path.insert(0, {here!r}); "
+            f"import test_torch_cuda as t; "
+            f"print(json.dumps(t._trace_here({host!r})))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here)] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return ([lu.Span(*sp) for sp in out["spans"]], tuple(out["anchor"]),
+            out["events"], out["base"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host", [False, True])
+def test_spans_map_onto_the_device_traces_clock(cuda_device, host):
+    """A span around each step's ``torch.cuda.synchronize()``, mapped by
+    the anchor, holds the trace's own record of that
+    ``cudaDeviceSynchronize`` (CUPTI's host clock, the kernels' clock):
+    the map is off by at most the tightest gap on either side, and that
+    is within 50 us. With CPU activity too, the annotated spans'
+    ``record_function`` twins start within 1 ms of them (the least gap):
+    the profiler's CPU ranges run on its own approximate clock and begin
+    after the range's entry, 46-309 us after the span on an H100's
+    host."""
+    from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
+
+    spans, anchor, events, base = _traced_steps(host)
+    us = lambda t: lu.to_trace_us(t, anchor, base)  # noqa: E731
+    calls = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "cuda_runtime"
+             and e.get("name") == "cudaDeviceSynchronize"]
+    mine = [(us(s.t0_ns), us(s.t1_ns)) for s in spans
+            if s.name == "test.sync"]
+    assert len(mine) == 4 and len(calls) >= 4
+    before, after = [], []
+    for a, b in mine:
+        c0, c1 = min(calls, key=lambda c: abs(c[0] + c[1] - a - b))
+        before.append(c0 - a)
+        after.append(b - c1)
+    assert min(before) >= 0 and min(after) >= 0, (before, after)
+    assert max(min(before), min(after)) <= 50.0, (before, after)
+    if host:
+        for name in ("train.forward", "train.backward", "train.optimizer"):
+            twins = sorted(e["ts"] for e in events if e.get("name") == name
+                           and e.get("cat") == "user_annotation")
+            starts = [us(s.t0_ns) for s in spans if s.name == name]
+            assert len(twins) == len(starts) == 4, name
+            assert abs(min(b - a for a, b in zip(starts, twins))) < 1000.0
+
+
+@pytest.mark.cuda
+def test_no_kernel_of_a_step_starts_before_its_forward(cuda_device):
+    """CUDA activity alone (no host ranges in the trace), a synchronize
+    after each step: on the spans' mapped clock, each kernel that starts
+    between the last step's synchronize and this step's starts after
+    this step's ``train.forward`` began, and ends before (within 50 us)
+    this step's synchronize returned."""
+    from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
+
+    spans, anchor, events, base = _traced_steps(False)
+    assert not any(e.get("cat") == "user_annotation" for e in events)
+    us = lambda t: lu.to_trace_us(t, anchor, base)  # noqa: E731
+    forwards = [us(s.t0_ns) for s in spans if s.name == "train.forward"]
+    syncs = [us(s.t1_ns) for s in spans if s.name == "test.sync"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel"]
+    assert len(forwards) == len(syncs) == 4
+    prev = -float("inf")
+    for fwd, end in zip(forwards, syncs):
+        mine = [k for k in kernels if prev < k[0] <= end]
+        assert mine, (fwd, end)
+        assert min(a for a, _ in mine) >= fwd
+        assert max(b for _, b in mine) <= end + 50.0
+        prev = end
