@@ -3051,12 +3051,34 @@ def update_l2(final, other, init):
     return (diff / upd) ** 0.5
 
 
+def train_graph_launches():
+    """By kernel, the launches the train step's graph replays enqueued, less
+    the wrapper calls that only recorded into it
+    (``train/supervised.py``'s ``train.replayed_launches.<kernel>`` and
+    ``train.captured_launches.<kernel>``)."""
+    from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
+
+    counts = lu.snapshot()
+    return {name: counts.get(f"train.replayed_launches.{name}", 0)
+            - counts.get(f"train.captured_launches.{name}", 0)
+            for name in ("fused_ce_fwd", "fused_ce_bwd", "upsample_argmax")}
+
+
+#: ``train_graph_launches()`` at the last ``reset_ce_counts``
+_TRAIN_GRAPH_AT_RESET = {}
+
+
 def ce_counts():
+    """Launches since ``reset_ce_counts``: each wrapper's count, with the
+    train step graph's captures and replays (``train_graph_launches``)."""
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import fused_ce as fc
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
-    return {"fused_ce_fwd": fc.FWD_LAUNCHES, "fused_ce_bwd": fc.BWD_LAUNCHES,
-            "upsample_argmax": ua.LAUNCHES}
+    graph = train_graph_launches()
+    own = {"fused_ce_fwd": fc.FWD_LAUNCHES, "fused_ce_bwd": fc.BWD_LAUNCHES,
+           "upsample_argmax": ua.LAUNCHES}
+    return {name: n + graph[name] - _TRAIN_GRAPH_AT_RESET.get(name, 0)
+            for name, n in own.items()}
 
 
 def reset_ce_counts():
@@ -3064,6 +3086,7 @@ def reset_ce_counts():
     from dasemanticsegmentationaml_tpu_torch.ops.cuda import upsample_argmax as ua
 
     fc.FWD_LAUNCHES = fc.BWD_LAUNCHES = ua.LAUNCHES = 0
+    _TRAIN_GRAPH_AT_RESET.update(train_graph_launches())
 
 
 def straight_and_resumed(argv, root, die_at, aliases, what):

@@ -167,6 +167,15 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _nearest_on(in_size: int, out_size: int, device: torch.device):
+    """``_nearest_indices`` as an int64 tensor on ``device``, copied there
+    once (made outside inference mode, as ``taps_on``): a captured train
+    step (``train/supervised.py``) can hold no host-to-device copy."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_nearest_indices(in_size, out_size)).to(device)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor,
                                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of NCHW input with align_corners=True."""
@@ -188,6 +197,6 @@ def upsample_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
         return x.expand(*x.shape[:-2], out_h, out_w)
     if out_h % in_h == 0 and out_w % in_w == 0:
         return F.interpolate(x, size=(out_h, out_w), mode="nearest")
-    rows = torch.from_numpy(_nearest_indices(in_h, out_h)).to(x.device)
-    cols = torch.from_numpy(_nearest_indices(in_w, out_w)).to(x.device)
+    rows = _nearest_on(in_h, out_h, x.device)
+    cols = _nearest_on(in_w, out_w, x.device)
     return x.index_select(-2, rows).index_select(-1, cols)

@@ -12,6 +12,29 @@ With ``--iter_size k > 1`` the optimizer steps through a
 ``GradientAccumulator`` (``train/optim.py``, optax ``MultiSteps``): each
 mini-step is one call of the step, and the parameters move at every k-th.
 
+On a card the step is one replayed CUDA graph (``make_train_step``): the
+host's enqueue of its ~900 kernels paced the step as much as the card did.
+Each batch shape (at most ``MAX_GRAPHS``) gets static input slots. Its
+first step is a real eager step on a side stream, which makes cuDNN's
+plans, the kernels' taps and libraries and the optimizer's state; its
+second captures ``zero_grad(set_to_none=True)``, the forward, the three
+CE heads, the backward and ``optimizer.step()`` into a graph and replays
+it once; every later step copies the batch into the slots and replays.
+Each call applies one update. The graph reads the parameters, the BN
+statistics and the optimizer's state where they live, so a checkpoint
+restored into them in place needs nothing; where the optimizer's
+settings (the learning rate ``set_learning_rate`` changes every epoch)
+or the place of those tensors change (``_fingerprint``), the shape takes
+an eager step again and is captured anew. Under bf16 or fp16 autocast the
+graph's first op makes the images ``torch.channels_last``: cuDNN then
+runs every convolution in NHWC without transposing activations, and BN,
+pooling, the depthwise convolutions and ``cat`` take their NHWC kernels
+(BN's NCHW kernels reduce one channel a block). The parameters stay
+NCHW, and the heads' logits reach the fused CE contiguous, as before.
+Where ``eager_reason`` gives a reason (the CPU, OHEM, an accumulator, an
+eval-mode model, an optimizer that cannot be captured, a third shape),
+the step is the eager NCHW step.
+
 The epoch loop keeps the reference's bookkeeping: the standard poly LR per
 epoch (train.py:71), ``latest`` every ``checkpoint_step`` epochs,
 validation and ``best`` every ``validation_step`` (train.py:106-120), and
@@ -28,16 +51,19 @@ for the card.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..data.pipeline import device_prefetch
+from ..ops.cuda import fused_ce as _fused_ce
+from ..ops.cuda import upsample_argmax as _upsample_argmax
 from ..ops.cuda.fused_ce import cross_entropy_upsampled
 from ..ops.losses import ohem_cross_entropy
 from ..ops.schedules import PolyLR
-from ..utils.logging_util import end_step, span
+from ..utils.logging_util import count, end_step, span
 from .optim import set_learning_rate
 
 
@@ -61,12 +87,15 @@ def make_supervised_loss(model, *, ohem: Optional[dict] = None,
     ``parallel/spatial.py::SpatialMesh``; ``images`` and ``labels`` are
     then this rank's band, the forward runs banded, and each head's CE is
     the band's share of the global mean (``SpatialMesh.band_ce``: ``ce``
-    on the band's row window over the global valid count)."""
+    on the band's row window over the global valid count). Autocast keeps
+    no cache of cast weights: a forward uses each weight once, and a
+    captured step (``make_train_step``) must cast the live weights."""
 
     def autocast(device_type):
         if amp_dtype is None:
             return contextlib.nullcontext()
-        return torch.autocast(device_type, dtype=amp_dtype)
+        return torch.autocast(device_type, dtype=amp_dtype,
+                              cache_enabled=False)
 
     def loss_fn(images, labels):
         with autocast(images.device.type), \
@@ -92,6 +121,152 @@ def make_supervised_loss(model, *, ohem: Optional[dict] = None,
     return loss_fn
 
 
+#: the batch shapes a step keeps a captured graph for; a step of another
+#: shape runs eagerly
+MAX_GRAPHS = 2
+#: the kernels' launch counters a captured step holds launches of, by
+#: kernel
+_LAUNCH_COUNTERS = {"fused_ce_fwd": (_fused_ce, "FWD_LAUNCHES"),
+                    "fused_ce_bwd": (_fused_ce, "BWD_LAUNCHES"),
+                    "upsample_argmax": (_upsample_argmax, "LAUNCHES")}
+#: the types of an optimizer group's settings that a capture bakes in
+_SETTINGS = (bool, int, float, str, tuple, type(None))
+
+
+def eager_reason(*, cuda: bool, ohem: bool, accumulator: bool,
+                 training: bool, capturable: bool, known: bool, shapes: int,
+                 warmed: bool) -> Optional[str]:
+    """Why a train step runs eagerly, or None where it replays its graph
+    (module docstring). ``cuda``: the images are CUDA tensors; ``ohem``,
+    ``accumulator``: the step has them; ``training``: the model is in
+    train mode; ``capturable``: the optimizer's step can be captured
+    (``_capturable``); ``known``: the batch's shape has a graph;
+    ``shapes``: the shapes that have one; ``warmed``: the shape took its
+    eager first step under the optimizer's present settings and state
+    (``_StepGraph.warmed``)."""
+    if not cuda:
+        return "cpu"
+    if ohem:
+        return "ohem"
+    if accumulator:
+        return "accumulator"
+    if not training:
+        return "eval"
+    if not capturable:
+        return "optimizer"
+    if not known and shapes >= MAX_GRAPHS:
+        return "shapes"
+    if not warmed:
+        return "warmup"
+    return None
+
+
+def _capturable(optimizer) -> bool:
+    """``optimizer.step()`` can be captured: no group says
+    ``capturable=False`` (Adam and RMSprop do by default: their step
+    counts are host tensors)."""
+    return all(g.get("capturable", True) for g in optimizer.param_groups)
+
+
+def _launches() -> Dict[str, int]:
+    return {name: getattr(module, attr)
+            for name, (module, attr) in _LAUNCH_COUNTERS.items()}
+
+
+def _count_launches(kind: str, launches: Dict[str, int]) -> None:
+    for name, n in launches.items():
+        if n:
+            count(f"train.{kind}_launches.{name}", n)
+
+
+def _fingerprint(tensors, optimizer) -> tuple:
+    """What a captured step bakes in: each optimizer group's settings (its
+    learning rate among them), and where ``tensors`` (the model's
+    parameters and buffers) and the optimizer's state live."""
+    groups = tuple(tuple(sorted((k, v) for k, v in g.items()
+                                if k != "params" and isinstance(v, _SETTINGS)))
+                   for g in optimizer.param_groups)
+    state = (t for s in optimizer.state.values() for t in s.values()
+             if isinstance(t, torch.Tensor))
+    return groups, tuple(t.data_ptr() for t in itertools.chain(tensors, state))
+
+
+class _StepGraph:
+    """One batch shape's static input slots and the step captured over
+    them."""
+
+    def __init__(self, images: torch.Tensor, labels: torch.Tensor):
+        self.images = torch.empty_like(images,
+                                       memory_format=torch.contiguous_format)
+        self.labels = torch.empty_like(labels,
+                                       memory_format=torch.contiguous_format)
+        #: the model's parameters and buffers at the shape's eager first
+        #: step, and ``_fingerprint`` after it; None: the next step of the
+        #: shape is that eager step
+        self.tensors: List[torch.Tensor] = []
+        self.fingerprint: Optional[tuple] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: the graph was captured before the last eager first step, or
+        #: there is none: capture (again) before the next replay
+        self.stale = True
+        self.loss: Optional[torch.Tensor] = None
+        #: the launches the graph holds, by kernel
+        self.launches: Dict[str, int] = {}
+
+    def load(self, images: torch.Tensor, labels: torch.Tensor) -> None:
+        self.images.copy_(images)
+        self.labels.copy_(labels)
+
+    def warmed(self, optimizer) -> bool:
+        """The shape took its eager first step under the optimizer's
+        present settings and state."""
+        return (self.fingerprint is not None
+                and self.fingerprint == _fingerprint(self.tensors, optimizer))
+
+    def warm_up(self, body: Callable, model, optimizer) -> torch.Tensor:
+        """One real step over the slots on a side stream: cuDNN's plans,
+        the fused CE's taps, the kernels' libraries and the optimizer's
+        state are made here, outside any capture. A graph captured
+        before it is stale."""
+        current = torch.cuda.current_stream(self.images.device)
+        side = torch.cuda.Stream(self.images.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            loss = body(self.images, self.labels)
+        current.wait_stream(side)
+        self.tensors = [*model.parameters(), *model.buffers()]
+        self.fingerprint = _fingerprint(self.tensors, optimizer)
+        self.stale = True
+        return loss
+
+    def capture(self, body: Callable) -> None:
+        """``body`` over the slots into a graph, in the memory pool of the
+        graph it replaces, if any. The wrappers count their calls in the
+        capture, which launched nothing, and a replay passes through no
+        wrapper: the counters ``train.captured_launches.<kernel>`` and
+        ``train.replayed_launches.<kernel>`` keep both, so a run's
+        launches are its wrapper's rise, less the first, plus the second
+        (as ``train/evaluate.py``'s ``CAPTURED_LAUNCHES`` and
+        ``REPLAYED_LAUNCHES``). ``thread_local``: the loader's threads may
+        call CUDA (``pin_memory``) meanwhile. A failed capture raises."""
+        pool = None if self.graph is None else self.graph.pool()
+        self.loss = None
+        graph = torch.cuda.CUDAGraph()
+        before = _launches()
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.loss = body(self.images, self.labels)
+        self.launches = {k: n - before[k] for k, n in _launches().items()}
+        _count_launches("captured", self.launches)
+        self.graph, self.stale = graph, False
+        count("train.graph_captures")
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        _count_launches("replayed", self.launches)
+        return self.loss.clone()
+
+
 def make_train_step(model, optimizer, *, accumulator=None,
                     ohem: Optional[dict] = None, ignore_index: int = 255,
                     amp_dtype: Optional[torch.dtype] = None,
@@ -99,14 +274,26 @@ def make_train_step(model, optimizer, *, accumulator=None,
     """step(images, labels) -> the loss as a detached device scalar (JAX
     supervised.py:86-113). The model must be in train mode.
     ``accumulator``: a ``GradientAccumulator`` over ``optimizer``; the step
-    is then one mini-step (JAX cli.py:719-722). Its phases are the spans
-    ``train.forward``, ``train.backward`` and ``train.optimizer``
-    (``utils/logging_util.py``)."""
+    is then one mini-step (JAX cli.py:719-722). On CUDA the step replays a
+    captured graph over ``torch.channels_last`` activations where
+    ``eager_reason`` finds none (module docstring).
+
+    Spans (``utils/logging_util.py``): an eager step's phases
+    ``train.forward``, ``train.backward`` and ``train.optimizer``; a
+    graphed step's ``train.replay`` (the slot copies and the replay) and,
+    once a graph, ``train.capture``. Counters, on CUDA, one a step:
+    ``train.graph_replays`` or ``train.eager_steps.<eager_reason>``; one a
+    capture: ``train.graph_captures``; the launches a graph holds, by
+    kernel, at its capture ``train.captured_launches.<kernel>`` and at
+    each replay ``train.replayed_launches.<kernel>``
+    (``_StepGraph.capture``)."""
     loss_fn = make_supervised_loss(model, ohem=ohem,
                                    ignore_index=ignore_index,
                                    amp_dtype=amp_dtype, ce=ce)
+    channels_last = amp_dtype in (torch.bfloat16, torch.float16)
+    graphs: Dict[tuple, _StepGraph] = {}
 
-    def step(images, labels):
+    def phases(images, labels):
         with span("train.forward"):
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(images, labels)
@@ -117,8 +304,48 @@ def make_train_step(model, optimizer, *, accumulator=None,
                 optimizer.step()
             else:
                 accumulator.step()
-        end_step()
         return loss.detach()
+
+    def graph_body(images, labels):
+        if channels_last:
+            images = images.contiguous(memory_format=torch.channels_last)
+        return phases(images, labels)
+
+    def graphed(held, reason, images, labels):
+        """The step of a shape that is taking its eager first step
+        (``reason`` "warmup") or replays its graph, captured first where
+        it has none under the present state."""
+        if reason == "warmup":
+            held.load(images, labels)
+            return held.warm_up(graph_body, model, optimizer)
+        if held.stale:
+            with span("train.capture"):
+                held.capture(graph_body)
+        with span("train.replay"):
+            held.load(images, labels)
+            return held.replay()
+
+    def step(images, labels):
+        cuda = images.device.type == "cuda"
+        key = (tuple(images.shape), images.dtype, tuple(labels.shape),
+               labels.dtype)
+        held = graphs.get(key)
+        reason = eager_reason(
+            cuda=cuda, ohem=ohem is not None,
+            accumulator=accumulator is not None, training=model.training,
+            capturable=_capturable(optimizer),
+            known=held is not None, shapes=len(graphs),
+            warmed=held is not None and held.warmed(optimizer))
+        if reason is None or reason == "warmup":
+            held = graphs.setdefault(key, held or _StepGraph(images, labels))
+            loss = graphed(held, reason, images, labels)
+        else:
+            loss = phases(images, labels)
+        if cuda:
+            count("train.graph_replays" if reason is None
+                  else f"train.eager_steps.{reason}")
+        end_step()
+        return loss
 
     return step
 

@@ -17,7 +17,8 @@ Spans and counters (the port's own; the JAX package has none):
   the name of the enclosing span of the same thread, ``step`` the train
   step it belongs to (``end_step`` advances it). ``enable(annotate=True)``
   also opens a ``torch.profiler.record_function`` of the span's name, so
-  a profile shows it (``Profiler`` asks for this).
+  a profile shows it (``Profiler`` asks for this); the span's interval
+  lies inside that range and leaves out its cost.
 - ``collect()`` returns the spans with the clock anchor taken at
   ``enable``, ``(perf_counter_ns, time_ns)``; ``to_trace_us`` maps a span
   time onto a ``torch.profiler`` Chrome trace's ``ts`` (microseconds
@@ -28,13 +29,19 @@ Spans and counters (the port's own; the JAX package has none):
   ``train/evaluate.py``).
 
 The spans: ``train.forward`` (``zero_grad`` and the loss: the forward and
-the three CE heads), ``train.backward`` and ``train.optimizer`` in
-``train/supervised.py::make_train_step``; ``data.wait`` (the consumer's
-wait for a batch in ``data/pipeline.py::device_prefetch``) and
+the three CE heads), ``train.backward`` and ``train.optimizer`` of an
+eager step in ``train/supervised.py::make_train_step``, and of a graphed
+step ``train.replay`` (the batch copied into the graph's slots and the
+replay) and, once a graph, ``train.capture``; ``data.wait`` (the
+consumer's wait for a batch in ``data/pipeline.py::device_prefetch``) and
 ``data.prepare`` (``prepare_batch``, on the thread that fetches). The
-counters: ``kernels.builds.<source>`` (one a ``nvcc`` run) and
+counters: ``kernels.builds.<source>`` (one a ``nvcc`` run),
 ``kernels.load_s`` (seconds in ``ops/cuda/build.py::load_library``, build
-and ``dlopen``, summed over its calls).
+and ``dlopen``, summed over its calls), and, one a train step on CUDA,
+``train.graph_replays`` or ``train.eager_steps.<reason>``, and
+``train.graph_captures``, ``train.captured_launches.<kernel>`` and
+``train.replayed_launches.<kernel>`` (the launches the train step's graph
+holds, added at its capture and at each replay).
 """
 
 from __future__ import annotations
@@ -195,18 +202,19 @@ class _Span:
         self.parent = stack[-1] if stack else None
         stack.append(self.name)
         self.step = self.rec.step
+        # inside its range: entering and leaving one under a CPU profile
+        # costs 10-30 us, which is not the program's
         self.rf = None
         if self.rec.record_function is not None:
             self.rf = self.rec.record_function(self.name)
-        self.t0 = time.perf_counter_ns()
-        if self.rf is not None:
             self.rf.__enter__()
+        self.t0 = time.perf_counter_ns()
         return None
 
     def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
         if self.rf is not None:
             self.rf.__exit__(*exc)
-        t1 = time.perf_counter_ns()
         _OPEN.stack.pop()
         self.rec.spans.append(Span(self.name, self.parent, self.step,
                                    threading.get_ident(), self.t0, t1))

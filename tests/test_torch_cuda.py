@@ -1500,19 +1500,49 @@ class _Heads(torch.nn.Module):
                 torch.nn.functional.avg_pool2d(y, 4)]
 
 
-def _trace_here(host, n=4):
-    """``n`` steps of ``make_train_step`` (bf16, the fused CE) on cuda:0
-    with the program's spans on (annotated with ``host``), each followed
-    by ``torch.cuda.synchronize()`` in the span ``test.sync``, profiled
-    with CUDA activity (and CPU activity with ``host``): {"spans",
-    "anchor", "events" (the trace's kernels, runtime calls and ranges),
-    "base" (its ``baseTimeNanoseconds``)}."""
+def _ce_launches():
+    """The fused CE's forward and backward launches so far: each wrapper's
+    count, less its calls that only recorded into the train step's graph,
+    plus the graph's replays' (``train/supervised.py``'s
+    ``train.captured_launches.<kernel>`` and
+    ``train.replayed_launches.<kernel>``)."""
+    from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
+
+    counts = lu.snapshot()
+    return tuple(counts[f"fused_ce.{attr}"]
+                 - counts.get(f"train.captured_launches.{name}", 0)
+                 + counts.get(f"train.replayed_launches.{name}", 0)
+                 for attr, name in (("FWD_LAUNCHES", "fused_ce_fwd"),
+                                    ("BWD_LAUNCHES", "fused_ce_bwd")))
+
+
+#: the spans a traced step begins with and holds its phases in: a graphed
+#: step's, and an eager step's on the card (an accumulator keeps it eager)
+_STEP_SPANS = {"graph": ("train.replay",),
+               "eager": ("train.forward", "train.backward",
+                         "train.optimizer")}
+
+
+def _trace_here(host, kind="graph", n=4):
+    """``n`` steps of ``make_train_step`` (bf16, the fused CE) on cuda:0,
+    after two, with the program's spans on (annotated with ``host``),
+    each followed by ``torch.cuda.synchronize()`` in the span
+    ``test.sync``, profiled with CUDA activity (and CPU activity with
+    ``host``). ``kind`` "graph": SGD, so the two steps before are the
+    eager first step and the capture, and each traced step replays the
+    step's graph; "eager": SGD through a ``GradientAccumulator`` of one
+    mini-step, so every step is the eager NCHW step. {"spans", "anchor",
+    "events" (the trace's kernels, runtime calls and ranges), "base" (its
+    ``baseTimeNanoseconds``), "launches" (the fused CE's forward and
+    backward launches, ``_ce_launches``, over the ``n`` steps)}."""
     import json
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
+    from dasemanticsegmentationaml_tpu_torch.train.optim import (
+        GradientAccumulator)
     from dasemanticsegmentationaml_tpu_torch.train.supervised import (
         make_train_step)
     from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
@@ -1520,9 +1550,10 @@ def _trace_here(host, n=4):
     device = torch.device("cuda", 0)
     torch.manual_seed(0)
     model = _Heads().to(device).train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
     step = make_train_step(
-        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
-        amp_dtype=torch.bfloat16)
+        model, opt, amp_dtype=torch.bfloat16,
+        accumulator=GradientAccumulator(opt, 1) if kind == "eager" else None)
     x = torch.randn(2, 3, 64, 128, device=device)
     y = torch.randint(0, 19, (2, 64, 128), device=device, dtype=torch.int32)
     for _ in range(2):
@@ -1530,6 +1561,7 @@ def _trace_here(host, n=4):
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA] + (
         [ProfilerActivity.CPU] if host else [])
+    launches = _ce_launches()
     try:
         with profile(activities=activities) as prof:
             lu.enable(annotate=host)
@@ -1540,6 +1572,7 @@ def _trace_here(host, n=4):
             lu.disable()
     finally:
         lu.disable()
+    launches = tuple(b - a for a, b in zip(launches, _ce_launches()))
     got = lu.collect()
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -1555,15 +1588,15 @@ def _trace_here(host, n=4):
                                    "user_annotation")]
     return {"spans": [list(sp) for sp in got["spans"]],
             "anchor": list(got["anchor"]), "events": events,
-            "base": trace["baseTimeNanoseconds"]}
+            "base": trace["baseTimeNanoseconds"], "launches": launches}
 
 
 @functools.lru_cache(maxsize=None)
-def _traced_steps(host):
-    """``_trace_here(host)`` in a fresh process: late in a long process
-    the profiler drops records (ROADMAP's tracing gap; here the first
-    kernels of a profile after some 400 card tests): (spans, anchor,
-    events, base)."""
+def _traced_steps(host, kind):
+    """``_trace_here(host, kind)`` in a fresh process: late in a long
+    process the profiler drops records (ROADMAP's tracing gap; here the
+    first kernels of a profile after some 400 card tests): (spans, anchor,
+    events, base, launches)."""
     import json
     import os
     import subprocess
@@ -1574,7 +1607,7 @@ def _traced_steps(host):
     here = os.path.dirname(os.path.abspath(__file__))
     code = (f"import json, sys; sys.path.insert(0, {here!r}); "
             f"import test_torch_cuda as t; "
-            f"print(json.dumps(t._trace_here({host!r})))")
+            f"print(json.dumps(t._trace_here({host!r}, {kind!r})))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(here)] + [p for p in [os.environ.get(
             "PYTHONPATH")] if p]))
@@ -1583,24 +1616,27 @@ def _traced_steps(host):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     return ([lu.Span(*sp) for sp in out["spans"]], tuple(out["anchor"]),
-            out["events"], out["base"])
+            out["events"], out["base"], tuple(out["launches"]))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_STEP_SPANS))
 @pytest.mark.parametrize("host", [False, True])
-def test_spans_map_onto_the_device_traces_clock(cuda_device, host):
+def test_spans_map_onto_the_device_traces_clock(cuda_device, host, kind):
     """A span around each step's ``torch.cuda.synchronize()``, mapped by
     the anchor, holds the trace's own record of that
     ``cudaDeviceSynchronize`` (CUPTI's host clock, the kernels' clock):
     the map is off by at most the tightest gap on either side, and that
     is within 50 us. With CPU activity too, the annotated spans'
     ``record_function`` twins start within 1 ms of them (the least gap):
-    the profiler's CPU ranges run on its own approximate clock and begin
-    after the range's entry, 46-309 us after the span on an H100's
-    host."""
+    the profiler's CPU ranges run on its own approximate clock. An
+    annotated span starts once its range has entered and ends before it
+    leaves, so the sync's span holds not the range's own 10-30 us. The
+    spans are a graphed step's ``train.replay`` and an eager step's three
+    phases (``_STEP_SPANS``)."""
     from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
 
-    spans, anchor, events, base = _traced_steps(host)
+    spans, anchor, events, base, _ = _traced_steps(host, kind)
     us = lambda t: lu.to_trace_us(t, anchor, base)  # noqa: E731
     calls = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "cuda_runtime"
@@ -1616,7 +1652,7 @@ def test_spans_map_onto_the_device_traces_clock(cuda_device, host):
     assert min(before) >= 0 and min(after) >= 0, (before, after)
     assert max(min(before), min(after)) <= 50.0, (before, after)
     if host:
-        for name in ("train.forward", "train.backward", "train.optimizer"):
+        for name in _STEP_SPANS[kind]:
             twins = sorted(e["ts"] for e in events if e.get("name") == name
                            and e.get("cat") == "user_annotation")
             starts = [us(s.t0_ns) for s in spans if s.name == name]
@@ -1625,18 +1661,21 @@ def test_spans_map_onto_the_device_traces_clock(cuda_device, host):
 
 
 @pytest.mark.cuda
-def test_no_kernel_of_a_step_starts_before_its_forward(cuda_device):
+@pytest.mark.parametrize("kind", sorted(_STEP_SPANS))
+def test_no_kernel_of_a_step_starts_before_its_forward(cuda_device, kind):
     """CUDA activity alone (no host ranges in the trace), a synchronize
     after each step: on the spans' mapped clock, each kernel that starts
     between the last step's synchronize and this step's starts after
-    this step's ``train.forward`` began, and ends before (within 50 us)
-    this step's synchronize returned."""
+    this step began (a graphed step's ``train.replay``, an eager step's
+    ``train.forward``), and ends before (within 50 us) this step's
+    synchronize returned."""
     from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
 
-    spans, anchor, events, base = _traced_steps(False)
+    spans, anchor, events, base, _ = _traced_steps(False, kind)
     assert not any(e.get("cat") == "user_annotation" for e in events)
     us = lambda t: lu.to_trace_us(t, anchor, base)  # noqa: E731
-    forwards = [us(s.t0_ns) for s in spans if s.name == "train.forward"]
+    forwards = [us(s.t0_ns) for s in spans
+                if s.name == _STEP_SPANS[kind][0]]
     syncs = [us(s.t1_ns) for s in spans if s.name == "test.sync"]
     kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
                if e.get("cat") == "kernel"]
@@ -1648,3 +1687,288 @@ def test_no_kernel_of_a_step_starts_before_its_forward(cuda_device):
         assert min(a for a, _ in mine) >= fwd
         assert max(b for _, b in mine) <= end + 50.0
         prev = end
+
+
+# ------------------------------------------- the replayed train step graph
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_STEP_SPANS))
+def test_traced_replays_launch_what_the_ce_counters_count(cuda_device, kind):
+    """Over four traced steps (``_trace_here``: replayed, after the eager
+    first step and the capture, or eager) the fused CE's launches
+    (``_ce_launches``: the wrappers' counters with the train step graph's
+    own) rise by the band kernels a CUDA-only profile of them holds: 3
+    forward and 3 backward a step."""
+    _spans, _anchor, events, _base, launches = _traced_steps(False, kind)
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    bands = (sum("ce_fwd_band" in n for n in names),
+             sum("ce_bwd_band" in n for n in names))
+    assert launches == bands == (12, 12), (launches, bands)
+
+
+def _counts():
+    """The train step's counters of steps and captures."""
+    from dasemanticsegmentationaml_tpu_torch.utils import logging_util as lu
+
+    return {k: v for k, v in lu.snapshot().items()
+            if k.startswith(("train.graph_", "train.eager_steps."))}
+
+
+def _rise(before):
+    return {k: v - before.get(k, 0) for k, v in _counts().items()
+            if v != before.get(k, 0)}
+
+
+def _sgd_steps(model, step_of, batches, lrs, *, graphed, amp_dtype=None):
+    """``make_train_step`` (``graphed``) or the eager NCHW step written out
+    (zero_grad, ``make_supervised_loss``, backward, SGD 0.9 / 1e-4) over
+    ``batches``, the learning rate set to ``lrs[i]`` before step i: the
+    losses, the momentum buffers after the first step and the last, and
+    the parameters after the last."""
+    from dasemanticsegmentationaml_tpu_torch.train.optim import (
+        make_optimizer, set_learning_rate)
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_supervised_loss, make_train_step)
+
+    opt = make_optimizer("sgd", step_of(model), lrs[0], momentum=0.9,
+                         weight_decay=1e-4)
+    if graphed:
+        step = make_train_step(model, opt, amp_dtype=amp_dtype)
+    else:
+        loss_fn = make_supervised_loss(model, amp_dtype=amp_dtype)
+
+        def step(x, y):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(x, y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+    params = [p for g in opt.param_groups for p in g["params"]]
+    losses, opt1 = [], None
+    for i, ((x, y), lr) in enumerate(zip(batches, lrs)):
+        set_learning_rate(opt, lr)
+        losses.append([float(step(x, y))])
+        if i == 0:
+            opt1 = [{"momentum_buffer": opt.state[p]["momentum_buffer"]
+                     .detach().clone()} for p in params]
+    momentum = [opt.state[p]["momentum_buffer"].detach().clone()
+                for p in params]
+    return {"losses": losses, "opt1": opt1, "momentum": momentum,
+            "params": [p.detach().clone() for p in params]}
+
+
+@pytest.mark.cuda
+def test_graphed_channels_last_steps_equal_eager_nchw_steps(cuda_device):
+    """The benchmark's ``train_b16`` cell (its state dict, batches, SGD and
+    bf16) taken for its 3 checked steps by ``make_train_step`` (the eager
+    first step, then two replays of the channels_last graph) and by the
+    eager NCHW step written out, from one state: the benchmark's measures
+    (``portbench/check.py``) within the cell's limits
+    (``portbench/limits/train_b16.json``), the eager step as the
+    reference: the classifier's first gradient (``head_grad``), its
+    change (``head_change``) and every leaf's (``change_median``); the
+    momentum buffers after the last step by the change's measures and
+    limits (SGD applies them), of the classifier and every leaf; the BN
+    running statistics' change by ``change_median``'s; the losses within
+    2% (the cell compares none: sound runs read up to 0.0082 against its
+    fp32 reference, PERF.md). cuDNN's sums are not deterministic, and the
+    two layouts take other algorithms."""
+    from portbench import check, harness, inputs
+    from portbench.drivers import common
+
+    from dasemanticsegmentationaml_tpu_torch.data.pipeline import (
+        prepare_batch)
+    from dasemanticsegmentationaml_tpu_torch.models.bisenet import (
+        trainable_parameters)
+
+    _entry, config, traffic, limits = harness.cell("train_b16")
+    seed = 2147483659
+    state = inputs.g_state(common.g_shapes(), seed, cuda_device)
+    batches = [prepare_batch(x, y, device=cuda_device, remap=False,
+                             dtype=torch.bfloat16)
+               for x, y in inputs.pool(
+                   seed, "train", traffic["check_steps"], traffic["batch"],
+                   tuple(traffic["hw"]), cuda_device,
+                   cell=traffic["label_cell"],
+                   ignore_share=traffic["ignore_share"])]
+    lrs = [config["optimizer"]["lr"]] * len(batches)
+    runs, stats = {}, {}
+    before = _counts()
+    for graphed in (True, False):
+        g = common.program_g(state, cuda_device)
+        runs[graphed] = _sgd_steps(
+            g, lambda m: trainable_parameters(m, False), batches, lrs,
+            graphed=graphed, amp_dtype=torch.bfloat16)
+        if graphed:
+            counted = _rise(before)
+        stats[graphed] = {n: t.detach().clone() for n, t in g.state_dict()
+                          .items() if n.endswith(("running_mean",
+                                                  "running_var"))}
+        names = [n for n, p in g.named_parameters()
+                 if any(p is q for q in trainable_parameters(g, False))]
+        del g
+    assert counted == {"train.eager_steps.warmup": 1,
+                       "train.graph_captures": 1,
+                       "train.graph_replays": len(batches) - 1}, counted
+    initial = [state[n] for n in names]
+    numbers = check.training_numbers(
+        runs[True], runs[False], initial,
+        check.sgd_first_grad(config["optimizer"]["weight_decay"]), names)
+    heads = [i for i, n in enumerate(names) if n.endswith(check.HEAD_LEAF)]
+    numbers["head_momentum"] = check.relative_difference(
+        *([run["momentum"][i] for i in heads] for run in (runs[True],
+                                                          runs[False])))
+    numbers["momentum_median"] = float(np.median(check.leaf_gaps(
+        runs[True]["momentum"], runs[False]["momentum"])))
+    numbers["stats_median"] = float(np.median(check.leaf_gaps(
+        *([run[n].double() - state[n].double() for n in stats[False]]
+          for run in (stats[True], stats[False])))))
+    print({k: round(v, 5) for k, v in numbers.items()})
+    for key, limit in (("head_grad", "head_grad"),
+                       ("head_change", "head_change"),
+                       ("change_median", "change_median"),
+                       ("head_momentum", "head_change"),
+                       ("momentum_median", "change_median"),
+                       ("stats_median", "change_median")):
+        assert numbers[key] <= limits[limit]["limit"], (key, numbers)
+    assert numbers["loss"] <= 0.02, numbers
+
+
+@pytest.mark.cuda
+def test_graphed_step_applies_a_new_learning_rate(cuda_device):
+    """fp32 (TF32 off, the graph stays NCHW): the learning rate raised
+    tenfold between two replays is applied. The shape takes one eager
+    step under it and is captured again, and the parameters follow the
+    eager step's within 1e-4 of their change, while the run without the
+    new rate stands far off."""
+    from dasemanticsegmentationaml_tpu_torch.cli import fp32_math
+
+    torch.manual_seed(0)
+    start = _Heads().to(cuda_device).train().state_dict()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    batches = [(torch.randn(2, 3, 64, 128, device=cuda_device,
+                            generator=gen),
+                torch.randint(0, 19, (2, 64, 128), device=cuda_device,
+                              dtype=torch.int32, generator=gen))
+               for _ in range(6)]
+    changed = [0.01] * 3 + [0.1] * 3
+    runs = {}
+    with fp32_math():
+        for name, graphed, lrs in (("graphed", True, changed),
+                                   ("eager", False, changed),
+                                   ("unchanged", True, [0.01] * 6)):
+            model = _Heads().to(cuda_device).train()
+            model.load_state_dict(start)
+            before = _counts()
+            runs[name] = _sgd_steps(model, lambda m: m.parameters(), batches,
+                                    lrs, graphed=graphed)
+            if name == "graphed":
+                assert _rise(before) == {
+                    "train.eager_steps.warmup": 2,
+                    "train.graph_captures": 2,
+                    "train.graph_replays": 4}, _rise(before)
+    initial = [t.to(cuda_device) for t in start.values()]
+
+    def gap(run):
+        return _update_gap(runs[run]["params"], runs["eager"]["params"],
+                           initial)
+
+    assert gap("graphed") < 1e-4, gap("graphed")
+    assert gap("unchanged") > 0.1, gap("unchanged")
+
+
+def _update_gap(params, reference, initial):
+    """||params - reference|| / ||reference - initial|| over the leaves, in
+    fp64."""
+    diff = sum(float((p.double() - r.double()).pow(2).sum())
+               for p, r in zip(params, reference))
+    upd = sum(float((r.double() - i.double()).pow(2).sum())
+              for r, i in zip(reference, initial))
+    return (diff / upd) ** 0.5
+
+
+@pytest.mark.cuda
+def test_a_second_shape_is_captured_and_a_third_runs_eagerly(cuda_device):
+    """bf16: two steps of each of three batch shapes, then five more of
+    the first: the first two shapes each take an eager first step and a
+    capture, the third runs eagerly as ``shapes``, and the first shape's
+    graph replays after them, every step counted once. The losses are
+    finite, and the fused CE's launches (``_ce_launches``) are 3 forward
+    and 3 backward a step, replayed, captured or eager."""
+    torch.manual_seed(0)
+    model = _Heads().to(cuda_device).train()
+    shapes = [(2, 64, 128), (1, 64, 128), (2, 32, 64)]
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def batch(b, h, w):
+        return (torch.randn(b, 3, h, w, device=cuda_device, generator=gen),
+                torch.randint(0, 19, (b, h, w), device=cuda_device,
+                              dtype=torch.int32, generator=gen))
+
+    from dasemanticsegmentationaml_tpu_torch.train.supervised import (
+        make_train_step)
+
+    step = make_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        amp_dtype=torch.bfloat16)
+    before, launches = _counts(), _ce_launches()
+    losses = [step(*batch(*s)) for s in shapes for _ in range(2)]
+    assert _rise(before) == {"train.eager_steps.warmup": 2,
+                             "train.graph_captures": 2,
+                             "train.graph_replays": 2,
+                             "train.eager_steps.shapes": 2}, _rise(before)
+    middle = _counts()
+    losses += [step(*batch(*shapes[0])) for _ in range(5)]
+    assert _rise(middle) == {"train.graph_replays": 5}, _rise(middle)
+    assert all(np.isfinite(float(v)) for v in losses)
+    rise = tuple(b - a for a, b in zip(launches, _ce_launches()))
+    assert rise == (3 * len(losses), 3 * len(losses)), rise
+
+
+@pytest.mark.cuda
+def test_profile_dir_traces_the_capture_and_the_replays(cuda_device,
+                                                        tmp_path):
+    """The supervised CLI with ``--profile_dir`` on cuda:0 (128x256, bf16,
+    batch 2, one epoch of 5 steps) in a fresh process: the run ends, and
+    its trace, which starts after the eager first step, holds one
+    ``train.capture`` range, a ``train.replay`` range for each of the
+    other four steps, and the fused CE's band kernels of the four
+    replays, 3 forward and 3 backward each."""
+    import glob
+    import json
+    import os
+    import subprocess
+    import sys
+
+    size, steps = (128, 256), 5
+    root = str(tmp_path / "cs")
+    _write_cityscapes(root, "train", 2 * steps, size=size)
+    _write_cityscapes(root, "val", 2, size=size, seed=1)
+    trace_dir = str(tmp_path / "trace")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here)] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dasemanticsegmentationaml_tpu_torch.cli",
+         "--root", root, "--crop_height", str(size[0]),
+         "--crop_width", str(size[1]), "--batch_size", "2",
+         "--eval_batch_size", "2", "--num_epochs", "1",
+         "--max_steps_per_epoch", str(steps), "--validation_step", "1",
+         "--checkpoint_step", "50", "--num_workers", "1",
+         "--dtype", "bfloat16", "--tensorboard", "False", "--cuda", "0",
+         "--profile_dir", trace_dir,
+         "--save_model_path", str(tmp_path / "run")],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert (ranges.count("train.capture"), ranges.count("train.replay")) \
+        == (1, steps - 1), sorted(set(ranges))
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    bands = (sum("ce_fwd_band" in n for n in kernels),
+             sum("ce_bwd_band" in n for n in kernels))
+    assert bands == (3 * (steps - 1), 3 * (steps - 1)), bands
